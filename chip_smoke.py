@@ -5,17 +5,24 @@ Runs from the root of a checkout on a machine with one NVIDIA GPU. It
 builds the port's CUDA kernels from the sources in the checkout and then,
 in phases that each exit non-zero on failure:
 
-1. prints torch / CUDA / nvcc versions and the card's name and power limit;
+1. prints torch / CUDA / nvcc versions and the card's name and power limit,
+   and builds both kernels (one ``nvcc`` each, started together);
 2. holds every kernel byte for byte against its plain PyTorch version on
-   the card, over gates x accumulate modes x decays x resets x activity x
-   shapes;
+   the card: the single-step timestep over gates x accumulate modes x
+   decays x resets x activity x shapes, and the K-step fused window over
+   K x gates x modes x decays x resets x shapes (the serving slice's shape,
+   a ragged one and the no-external-input edge), with masked slots;
 3. serves the slice end to end: two co-resident 784-256-10 MNIST nets on
    the full 32 x 32 Cerebra-H array, 8 slots x 8-step chunks, 20 streams of
    100 steps with churn, under each gate, on the kernel backends ("cuda",
    "cuda-f32") and on "reference"; rasters and predictions must be byte
    equal, one stream is checked against an independent numpy timestep,
-   and the kernel launch counts of the served path must be > 0;
-4. runs the launcher ``repro_torch.launch.serve_snn`` on the card;
+   and the kernel launch counts of the served path must be > 0. Then the
+   same plan again with ``fuse_steps`` 8 and 3 (ragged windows) on both
+   kernel backends and gates: rasters byte-equal to the unfused run, and
+   one fused launch per window issued (no single-step launch);
+4. runs the launcher ``repro_torch.launch.serve_snn`` on the card, with
+   ``--fuse-steps`` 1 and 8 in turns;
 5. times each kernel at the slice's shape, beside its plain version and
    its bound: device time per call from CUDA-graph replays between CUDA
    events (``ms``), and the time per call when issued eagerly from the
@@ -153,6 +160,72 @@ def phase_kernel_vs_plain(torch, ts, ops) -> int:
     return worst
 
 
+def fused_operands(ops, bitpack, ext, spk, W, v, active, n_in, block_batch):
+    """The padded operands and window-OR gate scalars the fused kernel
+    takes, as ``ops.spike_timestep_fused`` prepares them."""
+    ext_p, spk_p, w_ext, w_rec, v_p, act_p, _, _ = ops._fused_pad(
+        ext, spk, W, v, active, n_inputs=n_in, block_batch=block_batch,
+        block_src=128)
+    packed = bitpack.pack_spikes(ext_p).contiguous()
+    activity = ops.window_gate_activity(packed, block_batch=block_batch)
+    return activity, packed, w_ext, w_rec, v_p, spk_p, act_p
+
+
+def phase_fused_vs_plain(torch, tsf, ops, bitpack) -> int:
+    """Fused kernel vs its plain version on the card, torch.equal on
+    v_out, the spike carry and the raster, with a launch-error check
+    after every launch."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    decays = [("shift", 0.125, 0), ("shift", 0.75, 0), ("mul", 0.0, 47185)]
+    n_cases, worst = 0, 0
+    # (B, n_inputs, P): the serving slice, a ragged shape, no inputs
+    for B, n_in, P in ((8, 1568, 1024), (5, 200, 130), (3, 0, 128)):
+        for use_f32 in (False, True):
+            hi = (1 << 15) if use_f32 else (1 << 31)
+            W = torch.randint(-hi, hi, (n_in + P, P), generator=gen,
+                              device="cuda", dtype=torch.int64)
+            W = W.to(torch.int32)
+            for K in (1, 2, 3, 4, 8):
+                ext = (torch.rand((K, B, n_in), generator=gen, device="cuda")
+                       < 0.05).to(torch.int32)
+                spk = (torch.rand((B, P), generator=gen, device="cuda")
+                       < 0.2).to(torch.int32)
+                v = torch.randint(-(1 << 20), 1 << 20, (B, P),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32)
+                active = (torch.rand((K, B), generator=gen, device="cuda")
+                          < 0.75).to(torch.int32)  # masked slots
+                for block_batch in (8, 1):
+                    args = fused_operands(ops, bitpack, ext, spk, W,
+                                          v, active, n_in, block_batch)
+                    for kind, rate, raw in decays:
+                        for reset in ("zero", "subtract", "hold"):
+                            kw = dict(threshold_raw=1 << 16,
+                                      reset_mode=reset, decay_kind=kind,
+                                      decay_rate=rate, decay_raw=raw,
+                                      use_f32=use_f32,
+                                      block_batch=block_batch)
+                            got = tsf.spike_timestep_fused_cuda(*args, **kw)
+                            torch.cuda.synchronize()
+                            want = tsf.spike_timestep_fused_plain(*args,
+                                                                  **kw)
+                            for g, w in zip(got, want):
+                                err = int((g.to(torch.int64)
+                                           - w.to(torch.int64)).abs().max())
+                                worst = max(worst, err)
+                                check(torch.equal(g, w),
+                                      f"fused kernel != plain at B,n_in,P="
+                                      f"{B},{n_in},{P} K={K} f32={use_f32} "
+                                      f"block_batch={block_batch} "
+                                      f"decay={kind}/{rate}/{raw} "
+                                      f"reset={reset}: max |diff| {err}")
+                            n_cases += 1
+    log(f"fused kernel == plain (torch.equal on v_out, spike carry and "
+        f"raster) in all {n_cases} cases: 3 shapes x 2 modes x 5 K x 2 "
+        f"gates x 3 decays x 3 resets, masked slots; max |diff| {worst}")
+    return worst
+
+
 # --------------------------------------------------------------------------
 def mnist_nets(np, feedforward, cfg):
     """Two 784-256-10 nets from seeded numpy weights, the paper's LIF."""
@@ -184,9 +257,12 @@ def serve_plan(np):
     return streams, arrivals
 
 
-def serve_once(np, torch, session_cls, cfg, nets, backend, gate, plan):
-    """Serve the plan; returns ({uid: raster}, {uid: prediction}, server)."""
-    sess = session_cls(cfg.ACCELERATOR, backend=backend, device="cuda")
+def serve_once(np, torch, session_cls, cfg, nets, backend, gate, plan,
+               fuse_steps=1):
+    """Serve the plan; returns ({uid: raster}, {uid: prediction}, session,
+    chunk dispatches issued)."""
+    sess = session_cls(cfg.ACCELERATOR, backend=backend, device="cuda",
+                       fuse_steps=fuse_steps)
     for name, net in nets.items():
         sess.deploy(name, net)
     views = {name: sess.serve(name, n_slots=N_SLOTS, chunk_steps=CHUNK,
@@ -195,6 +271,7 @@ def serve_once(np, torch, session_cls, cfg, nets, backend, gate, plan):
     streams, arrivals = plan
     arrivals = [list(a) for a in arrivals]
     live, pieces, counts = {}, {}, {}
+    dispatches = 0
     while arrivals or live:
         if arrivals:
             for uid in arrivals.pop(0):
@@ -214,6 +291,8 @@ def serve_once(np, torch, session_cls, cfg, nets, backend, gate, plan):
                 done.append(uid)
         for name, inputs in per_model.items():
             if inputs:
+                longest = max(len(x) for x in inputs.values())
+                dispatches += -(-longest // CHUNK)
                 for uid, out in views[name].feed_many(inputs).items():
                     pieces[uid].append(out["spikes"])
                     counts[uid] = counts[uid] + out["output_counts"]
@@ -222,7 +301,7 @@ def serve_once(np, torch, session_cls, cfg, nets, backend, gate, plan):
             views[streams[uid][0]].detach(uid)
     rasters = {u: np.concatenate(p, axis=0) for u, p in pieces.items()}
     preds = {u: int(np.argmax(c)) for u, c in counts.items()}
-    return rasters, preds, sess
+    return rasters, preds, sess, dispatches
 
 
 def numpy_timestep_raster(np, engine, ext_fused, reset_mode):
@@ -250,12 +329,13 @@ def phase_serve(np, torch, ops, session_cls, feedforward, cfg):
 
     nets = mnist_nets(np, feedforward, cfg)
     plan = serve_plan(np)
-    launches, served_steps, engine_steps = 0, 0, 0
+    launches, served_steps, fused_launches = 0, 0, 0
+    rates = {}  # (backend, gate, K) -> served stream-steps per second
     f32_bound = None
     for gate in ("batch-tile", "per-example"):
         t0 = time.perf_counter()
-        ref, ref_pred, ref_sess = serve_once(np, torch, session_cls, cfg,
-                                             nets, "reference", gate, plan)
+        ref, ref_pred, ref_sess, _ = serve_once(np, torch, session_cls, cfg,
+                                                nets, "reference", gate, plan)
         log(f"served {len(ref)} streams x {STREAM_T} steps on reference "
             f"({gate}) in {time.perf_counter() - t0:.2f} s")
         spikes = sum(int(r.sum()) for r in ref.values())
@@ -276,22 +356,26 @@ def phase_serve(np, torch, ops, session_cls, feedforward, cfg):
               "reference served raster != independent numpy timestep")
         for backend in ("cuda", "cuda-f32"):
             ops.LAUNCHES["spike_timestep"] = 0  # just before the main path
+            ops.LAUNCHES["spike_timestep_fused"] = 0
             t0 = time.perf_counter()
-            got, pred, sess = serve_once(np, torch, session_cls, cfg, nets,
-                                         backend, gate, plan)
+            got, pred, sess, _ = serve_once(np, torch, session_cls, cfg,
+                                            nets, backend, gate, plan)
             torch.cuda.synchronize()
             n = ops.LAUNCHES["spike_timestep"]  # just after it
             dt = time.perf_counter() - t0
             server = next(iter(sess._stream_servers.values()))
             check(n > 0, f"{backend}/{gate}: the served path launched no "
                          f"spike_timestep kernel")
+            check(ops.LAUNCHES["spike_timestep_fused"] == 0,
+                  f"{backend}/{gate}: the unfused path launched the fused "
+                  f"kernel")
             check(all(np.array_equal(got[u], ref[u]) for u in ref),
                   f"{backend}/{gate}: served rasters != reference")
             check(pred == ref_pred,
                   f"{backend}/{gate}: predictions != reference")
             launches += n
             served_steps += server.total_steps
-            engine_steps += n  # one launch per engine timestep
+            rates[(backend, gate, 1)] = server.total_steps / dt
             log(f"{backend} ({gate}): rasters and predictions byte-equal to "
                 f"reference for {len(got)} streams ({spikes} spikes); "
                 f"LAUNCHES={dict(ops.LAUNCHES)}; {server.total_steps} "
@@ -300,25 +384,84 @@ def phase_serve(np, torch, ops, session_cls, feedforward, cfg):
             if backend == "cuda-f32":
                 f32_bound = mxu_partial_sum_bound(
                     server.engine.weights_raw.cpu().numpy())
+        fused_launches += serve_fused(np, torch, ops, session_cls, cfg, nets,
+                                      plan, gate, ref, ref_pred, rates)
     log(f"f32 worst-case block sum {f32_bound} (< 2^24 = {1 << 24})")
-    return launches, served_steps
+    return launches, served_steps, fused_launches, rates
+
+
+def serve_fused(np, torch, ops, session_cls, cfg, nets, plan, gate, ref,
+                ref_pred, rates) -> int:
+    """The plan served with K-step fused windows: K = 8 (one window per
+    8-step chunk) and K = 3 (ragged: 3 + 3 + 2), on both kernel backends.
+    Rasters byte-equal to the unfused run; one fused launch per window
+    issued and no single-step launch."""
+    total = 0
+    for K in (8, 3):
+        for backend in ("cuda", "cuda-f32"):
+            ops.LAUNCHES["spike_timestep"] = 0  # just before the main path
+            ops.LAUNCHES["spike_timestep_fused"] = 0
+            t0 = time.perf_counter()
+            got, pred, sess, dispatches = serve_once(
+                np, torch, session_cls, cfg, nets, backend, gate, plan,
+                fuse_steps=K)
+            torch.cuda.synchronize()
+            n = ops.LAUNCHES["spike_timestep_fused"]  # just after it
+            n_single = ops.LAUNCHES["spike_timestep"]
+            dt = time.perf_counter() - t0
+            server = next(iter(sess._stream_servers.values()))
+            windows = dispatches * -(-CHUNK // K)
+            check(server.engine.fuse_steps == K and server.engine._use_fused,
+                  f"{backend}/{gate}/K={K}: the served engine is not fused")
+            check(n == windows and n > 0,
+                  f"{backend}/{gate}/K={K}: {n} fused launches for {windows} "
+                  f"windows issued")
+            check(n_single == 0, f"{backend}/{gate}/K={K}: {n_single} "
+                                 f"single-step launches on the fused path")
+            check(all(np.array_equal(got[u], ref[u]) for u in ref),
+                  f"{backend}/{gate}/K={K}: fused served rasters != unfused")
+            check(pred == ref_pred,
+                  f"{backend}/{gate}/K={K}: predictions != unfused")
+            total += n
+            rates[(backend, gate, K)] = server.total_steps / dt
+            log(f"{backend} ({gate}) fuse_steps={K}: rasters and "
+                f"predictions byte-equal to the unfused run; {n} fused "
+                f"launches = {dispatches} chunk dispatches x "
+                f"{-(-CHUNK // K)} windows, 0 single-step; "
+                f"{server.total_steps} stream-steps in {dt:.2f} s")
+    return total
 
 
 def phase_launcher(torch, ops):
+    """``serve_snn`` with --fuse-steps 1 and 8 in turns (1, 8, 8, 1), so
+    the two are compared within one run on one card."""
     from repro_torch.launch import serve_snn
 
-    ops.LAUNCHES["spike_timestep"] = 0
-    summary = serve_snn.main([
-        "--device", "cuda", "--backend", "cuda", "--models", "2",
-        "--n-inputs", "784", "--n-neurons", "266",
-        "--steps-per-stream", "100", "--seed", "0"])
-    torch.cuda.synchronize()
-    n = ops.LAUNCHES["spike_timestep"]
-    check(n > 0, "serve_snn launched no spike_timestep kernel")
-    check(summary["streams_done"] == 24, "serve_snn did not finish")
-    log(f"serve_snn: {summary['steps_per_s']:.1f} steps/s, "
-        f"{summary['steps']} stream-steps, {n} kernel launches")
-    return summary, n
+    runs = []
+    for K in (1, 8, 8, 1):
+        ops.LAUNCHES["spike_timestep"] = 0
+        ops.LAUNCHES["spike_timestep_fused"] = 0
+        summary = serve_snn.main([
+            "--device", "cuda", "--backend", "cuda", "--models", "2",
+            "--n-inputs", "784", "--n-neurons", "266",
+            "--steps-per-stream", "100", "--seed", "0",
+            "--fuse-steps", str(K)])
+        torch.cuda.synchronize()
+        launched = dict(ops.LAUNCHES)
+        kernel = "spike_timestep" if K == 1 else "spike_timestep_fused"
+        check(launched[kernel] > 0, f"serve_snn --fuse-steps {K} launched "
+                                    f"no {kernel} kernel")
+        check(sum(launched.values()) == launched[kernel],
+              f"serve_snn --fuse-steps {K} launched {launched}")
+        check(summary["launches"] == launched,
+              "serve_snn's launch counts disagree with the kernels'")
+        check(summary["streams_done"] == 24, "serve_snn did not finish")
+        log(f"serve_snn --fuse-steps {K}: {summary['steps_per_s']:.1f} "
+            f"steps/s, {summary['steps']} stream-steps, {launched[kernel]} "
+            f"{kernel} launches, chunk dispatch p50 "
+            f"{summary['dispatch_ms']['p50']:.2f} ms")
+        runs.append(summary)
+    return runs
 
 
 # --------------------------------------------------------------------------
@@ -449,6 +592,118 @@ def phase_times(np, torch, ts, ops, session_cls, feedforward, cfg):
     return variants
 
 
+def served_window(np, torch, session_cls, feedforward, cfg, K):
+    """A real window of the slice: 8 streams (4 per model) stepped 40
+    times on the reference engine, then the next K steps' external spikes
+    and the carry at window entry."""
+    nets = mnist_nets(np, feedforward, cfg)
+    sess = session_cls(cfg.ACCELERATOR, backend="reference", device="cuda")
+    for name, net in nets.items():
+        sess.deploy(name, net)
+    eng = sess._fused_engine(list(sess.models.values()))
+    rng = np.random.default_rng(5)
+    intensity = 0.25 * rng.random((N_SLOTS, 784))
+
+    def ext_step():
+        ext = np.zeros((N_SLOTS, eng.n_inputs), np.int32)
+        for b in range(N_SLOTS):
+            off = 0 if b % 2 == 0 else 784
+            ext[b, off:off + 784] = rng.random(784) < intensity[b]
+        return torch.from_numpy(ext).cuda()
+
+    carry = eng.init_carry(N_SLOTS)
+    for _ in range(40):
+        carry, _ = eng.step(carry, ext_step())
+    ext = torch.stack([ext_step() for _ in range(K)])
+    return eng, ext, carry
+
+
+def phase_times_fused(np, torch, tsf, ops, bitpack, session_cls,
+                      feedforward, cfg, single):
+    """The fused kernel at the slice shape on a served window of K = 8
+    steps, beside its plain version, the whole ops wrapper and its bound;
+    per step against the single-step kernel of the same run."""
+    K = 8
+    eng, ext, carry = served_window(np, torch, session_cls, feedforward,
+                                    cfg, K)
+    n_in = eng.n_inputs
+    active = torch.ones((K, N_SLOTS), dtype=torch.int32, device="cuda")
+    pair = ops.fused_weights(eng.weights_raw, n_in)
+    kw0 = dict(threshold_raw=eng.threshold_raw, reset_mode=eng.reset_mode,
+               decay_kind="shift", decay_rate=eng.decay.rate)
+    # the work this window's data needs: external rows that spike in any
+    # (step, slot), recurrent rows of neurons that spike entering any step
+    _, _, raster = ops.spike_timestep_fused(
+        ext, carry["spikes"], pair, carry["v"], active, n_inputs=n_in, **kw0)
+    rec_in = torch.cat([carry["spikes"][None], raster[:-1]])  # (K, B, P)
+    ext_rows = int((ext != 0).any(dim=1).any(dim=0).sum())
+    rec_rows = int((rec_in != 0).any(dim=1).any(dim=0).sum())
+    nnz = int((ext != 0).sum()) + int((rec_in != 0).sum())
+    log(f"fused timing inputs: a served window of K={K} steps x "
+        f"{N_SLOTS} slots; {int((ext != 0).sum())} external spikes on "
+        f"{ext_rows} of {n_in} rows, {int((rec_in != 0).sum())} recurrent "
+        f"spikes on {rec_rows} of {eng.n_phys} rows, "
+        f"{int(raster.sum())} spikes emitted")
+    variants = {}
+    for gate, bb in (("batch-tile", 8), ("per-example", 1)):
+        args = fused_operands(ops, bitpack, ext, carry["spikes"],
+                              eng.weights_raw, carry["v"], active, n_in, bb)
+        activity, packed, w_ext, w_rec, v_p, spk_p, act_p = args
+        Bp, Pp = v_p.shape
+        blocks = int((activity > 0).sum())
+        for mode in ("exact", "f32"):
+            kw = dict(kw0, use_f32=(mode == "f32"), block_batch=bb)
+            kernel = lambda: tsf.spike_timestep_fused_cuda(  # noqa: E731
+                *args, **kw)
+            plain = lambda: tsf.spike_timestep_fused_plain(  # noqa: E731
+                *args, **kw)
+            # the wrapper: pad, bitpack, window-OR gate scalars, launch
+            window = lambda: ops.spike_timestep_fused(  # noqa: E731
+                ext, carry["spikes"], pair, carry["v"], active,
+                n_inputs=n_in, **kw)
+            k_ms, p_ms, w_ms = (graph_time_ms(torch, f)
+                                for f in (kernel, plain, window))
+            k_eager, p_eager, w_eager = (
+                cuda_time_ms(torch, f, iters=50)
+                for f in (kernel, plain, window))
+            got = kernel()
+            want = plain()
+            err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs()
+                          .max()) for g, w in zip(got, want))
+            check(err == 0, f"fused timing inputs: kernel != plain "
+                            f"({gate}, {mode})")
+            nbytes = 4 * ((ext_rows + rec_rows) * Pp + packed.numel()
+                          + activity.numel() + act_p.numel()
+                          + 4 * Bp * Pp + K * Bp * Pp)
+            ops_n = nnz * Pp * (2 if mode == "f32" else 1) + 12 * K * Bp * Pp
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            o_ms = ops_n / FP32_OPS_PER_S * 1e3
+            bound = max(b_ms, o_ms)
+            step_ms = single[f"{gate}/{mode}"]["ms"]
+            variants[f"{gate}/{mode}"] = {
+                "ms": k_ms, "ms_per_step": k_ms / K, "plain_ms": p_ms,
+                "ops_window_ms": w_ms, "eager_ms": k_eager,
+                "eager_plain_ms": p_eager, "eager_ops_window_ms": w_eager,
+                "bound_ms": bound,
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "single_step_ms": step_ms, "max_abs_err": err,
+                "active_ext_blocks": blocks,
+                "grid_ctas": min(8, Pp // 128) * (Bp // bb)}
+            log(f"spike_timestep_fused {gate}/{mode}: device time per "
+                f"window (CUDA graph) kernel {k_ms * 1e3:.1f} us = "
+                f"{k_ms / K * 1e3:.1f} us per step (single-step kernel "
+                f"{step_ms * 1e3:.1f} us), plain {p_ms * 1e3:.1f} us, whole "
+                f"ops window {w_ms * 1e3:.1f} us; issued eagerly kernel "
+                f"{k_eager * 1e3:.1f} us, plain {p_eager * 1e3:.1f} us, ops "
+                f"window {w_eager * 1e3:.1f} us; bound {bound * 1e3:.2f} us "
+                f"({nbytes / 1e6:.2f} MB at 3.35 TB/s) -> "
+                f"{100 * bound / k_ms:.1f}% of bound; {blocks} active "
+                f"external gate blocks")
+    log("library_ms (fused): no single PyTorch call computes the gated "
+        "K-step window with its LIF epilogues; none is timed")
+    return variants
+
+
 # --------------------------------------------------------------------------
 def main() -> None:
     t_start = time.perf_counter()
@@ -468,8 +723,9 @@ def main() -> None:
     from repro_torch.configs import snap_v_snn as cfg
     from repro_torch.core.network import feedforward
     from repro_torch.core.session import AcceleratorSession
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import bitpack, ops
     from repro_torch.kernels import spike_timestep as ts
+    from repro_torch.kernels import spike_timestep_fused as tsf
 
     check(not any(m == "jax" or m.startswith(("jax.", "repro."))
                   or m == "repro" for m in sys.modules),
@@ -480,23 +736,33 @@ def main() -> None:
 
     log("phase 1: environment")
     card = phase_environment(torch)
-    phase_build([("spike_timestep", ts)])
+    phase_build([("spike_timestep", ts), ("spike_timestep_fused", tsf)])
 
-    log("phase 2: kernel vs plain version on the card")
+    log("phase 2: kernels vs plain versions on the card")
     worst = phase_kernel_vs_plain(torch, ts, ops)
+    worst_fused = phase_fused_vs_plain(torch, tsf, ops, bitpack)
 
-    log("phase 3: the serving slice end to end")
-    launches, served_steps = phase_serve(np, torch, ops, AcceleratorSession,
-                                         feedforward, cfg)
+    log("phase 3: the serving slice end to end, unfused and fused")
+    launches, served_steps, fused_launches, rates = phase_serve(
+        np, torch, ops, AcceleratorSession, feedforward, cfg)
+    for (backend, gate, K), rate in sorted(rates.items()):
+        log(f"served {backend} ({gate}) fuse_steps={K}: {rate:.1f} "
+            f"stream-steps/s")
 
-    log("phase 4: the launcher")
-    launcher, launcher_launches = phase_launcher(torch, ops)
+    log("phase 4: the launcher, --fuse-steps 1 and 8 in turns")
+    launcher = phase_launcher(torch, ops)
 
     log("phase 5: times on the card")
     variants = phase_times(np, torch, ts, ops, AcceleratorSession,
                            feedforward, cfg)
+    fused_variants = phase_times_fused(np, torch, tsf, ops, bitpack,
+                                       AcceleratorSession, feedforward, cfg,
+                                       variants)
     main_v = variants["batch-tile/exact"]
+    main_f = fused_variants["batch-tile/exact"]
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+    launcher_rates = {f"K={s['fuse_steps']} run {i}": s["steps_per_s"]
+                      for i, s in enumerate(launcher)}
 
     print(json.dumps({"kernels": [{
         "name": "spike_timestep",
@@ -512,8 +778,24 @@ def main() -> None:
         "library_ms": None,
         "variants": variants,
         "served_stream_steps": served_steps,
-        "launcher_steps_per_s": launcher["steps_per_s"],
-        "launcher_launches": launcher_launches,
+        "card": card,
+    }, {
+        "name": "spike_timestep_fused",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/spike_timestep_fused.cu",
+        "replaces": "src/repro/kernels/spike_timestep.py:208",
+        "launches": fused_launches,
+        "max_abs_err": max(worst_fused, main_f["max_abs_err"]),
+        "ms": main_f["ms"],
+        "plain_ms": main_f["plain_ms"],
+        "bound_ms": main_f["bound_ms"],
+        "bound_by": main_f["bound_by"],
+        "library_ms": None,
+        "fuse_steps": 8,
+        "variants": fused_variants,
+        "served_stream_steps_per_s": {
+            f"{b}/{g}/K={k}": r for (b, g, k), r in sorted(rates.items())},
+        "launcher_steps_per_s": launcher_rates,
         "card": card,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,10 @@ the accumulate + fire of each step to a backend:
                    engine build from the weight image.
 
 All three give byte-identical rasters. On a CPU engine the two kernel
-backends run the kernel's plain version (same padding and gate scalars).
-JAX's ``lax.scan`` becomes a Python loop over T.
+backends run the kernels' plain versions (same padding and gate scalars).
+JAX's ``lax.scan`` becomes a Python loop over T. With ``fuse_steps`` K > 1
+the kernel backends advance in K-step windows, one fused kernel launch
+each (``ops.spike_timestep_fused``).
 """
 
 from __future__ import annotations
@@ -56,11 +58,6 @@ _GATE_TILE_BATCH = {"batch-tile": 8, "per-example": 1}
 # f32 has a 24-bit significand: integer sums stay exact below 2^24.
 MXU_EXACT_BOUND: int = 1 << 24
 _F32_BLOCK_SRC = 128  # source-block size the f32 accumulate reduces over
-
-_FUSED_TODO = ("fuse_steps > 1 on a kernel backend needs the K-step fused "
-               "kernel, which is not ported yet (ROADMAP Queue 2 item 2, "
-               "spike_timestep_fused_kernel)")
-
 
 @dataclasses.dataclass(frozen=True)
 class DecaySpec:
@@ -150,8 +147,6 @@ class SpikeEngine:
         if fuse_steps < 1:
             raise ValueError(f"fuse_steps must be >= 1, got {fuse_steps}")
         mode = BACKEND_TABLE[backend][1]
-        if fuse_steps > 1 and mode is not None:
-            raise NotImplementedError(_FUSED_TODO)
         self.device = resolve_device(device)
         weights_raw = _as_int32(weights_raw, self.device)
         if weights_raw.ndim != 2:
@@ -174,9 +169,12 @@ class SpikeEngine:
                     f"cuda-f32 backend rejected at build time: worst-case "
                     f"f32 partial sum {worst} >= 2^24 ({MXU_EXACT_BOUND}) "
                     f"for max |w| = {w_max} raw Q16.16, per-block source "
-                    f"fan-in {_F32_BLOCK_SRC}; the f32 accumulate would not "
-                    f"be bit-exact for this weight image. Reduce fan-in or "
-                    f"weight magnitudes, or use backend='cuda'.")
+                    f"fan-in {_F32_BLOCK_SRC}, fuse_steps K = {fuse_steps} "
+                    f"(the bound is K-invariant: the fused window stacks "
+                    f"along the product's batch axis, never its reduction "
+                    f"axis); the f32 accumulate would not be bit-exact for "
+                    f"this weight image. Reduce fan-in or weight "
+                    f"magnitudes, or use backend='cuda'.")
         self.weights_raw = weights_raw
         self.n_inputs = int(n_inputs)
         self.n_phys = int(n_phys)
@@ -189,12 +187,16 @@ class SpikeEngine:
         self.fuse_steps = fuse_steps
         self._mode = mode
         # kernel backends pad the image to the block multiples once, so a
-        # step moves no weight copy (ops.spike_timestep accepts it as is)
+        # step or a window moves no weight copy (the ops wrappers accept
+        # the padded layouts as they are)
         self._kernel_weights = None
+        self._fused_weights = None
         if mode is not None:
             self._kernel_weights = ops._pad_to(
                 ops._pad_to(weights_raw, 0, _F32_BLOCK_SRC), 1,
                 128).contiguous()
+        if self._use_fused:
+            self._fused_weights = ops.fused_weights(weights_raw, n_inputs)
 
     # ------------------------------------------------------------------
     def _rehost(self, **changes) -> "SpikeEngine":
@@ -211,9 +213,9 @@ class SpikeEngine:
         return self if gate == self.gate else self._rehost(gate=gate)
 
     def with_fuse_steps(self, fuse_steps: int) -> "SpikeEngine":
-        """This program under another K-step window. Returns ``self`` when
-        K already matches; K > 1 on a kernel backend raises until the
-        fused kernel is ported."""
+        """This program under another K-step window (identical outputs;
+        only the kernel granularity and weight traffic differ). Returns
+        ``self`` when K already matches."""
         if int(fuse_steps) == self.fuse_steps:
             return self
         return self._rehost(fuse_steps=fuse_steps)
@@ -282,6 +284,8 @@ class SpikeEngine:
         if active.shape != ext.shape[:2]:
             raise ValueError(f"active mask must be {tuple(ext.shape[:2])}, "
                              f"got {tuple(active.shape)}")
+        if self._use_fused:
+            return self._fused_scan(carry, ext, active)
         return self._masked_chunk_scan(carry, ext, active)
 
     def _masked_chunk_scan(self, carry: dict, ext: torch.Tensor,
@@ -302,6 +306,44 @@ class SpikeEngine:
             raster[t] = torch.where(keep, spikes, 0)
         return carry, raster
 
+    # ------------------------------------------------------------------
+    # K-step fused path: with fuse_steps > 1 on a kernel backend, run and
+    # step_chunk advance in K-step windows, one fused kernel launch each
+    # (each active external weight block fetched once per window). A
+    # ragged T pads up to a K multiple with active = 0: the kernel's
+    # masked-slot contract makes the remainder byte-identical to the
+    # unfused masked scan.
+    # ------------------------------------------------------------------
+    @property
+    def _use_fused(self) -> bool:
+        return self.fuse_steps > 1 and self._mode is not None
+
+    def _window(self, carry: dict, ext_w: torch.Tensor,
+                act_w: torch.Tensor):
+        """One fused K-step window: (carry, (K, B, *) inputs) -> (carry',
+        (K, B, P) emitted raster)."""
+        v_out, spk_carry, raster = ops.spike_timestep_fused(
+            ext_w, carry["spikes"], self._fused_weights, carry["v"], act_w,
+            n_inputs=self.n_inputs, decay_kind=self.decay.kind,
+            decay_rate=self.decay.rate, decay_raw=self.decay.raw,
+            threshold_raw=self.threshold_raw, reset_mode=self.reset_mode,
+            use_f32=(self._mode == "f32"),
+            block_batch=_GATE_TILE_BATCH[self.gate])
+        return {"v": v_out, "spikes": spk_carry}, raster
+
+    def _fused_scan(self, carry: dict, ext: torch.Tensor,
+                    active: torch.Tensor):
+        K = self.fuse_steps
+        T, B = ext.shape[0], ext.shape[1]
+        ext = ops._pad_to(ext, 0, K)
+        active = ops._pad_to(active, 0, K)
+        raster = torch.empty((ext.shape[0], B, self.n_phys),
+                             dtype=torch.int32, device=self.device)
+        for t0 in range(0, ext.shape[0], K):
+            carry, raster[t0:t0 + K] = self._window(
+                carry, ext[t0:t0 + K], active[t0:t0 + K])
+        return carry, raster[:T]
+
     def run(self, ext_spikes) -> dict:
         """Run the engine over a dense ``(T, B, n_inputs)`` spike train
         from power-on. Returns ``{'spikes': (T, B, n_phys),
@@ -315,6 +357,11 @@ class SpikeEngine:
             raise ValueError(f"ext_spikes must be (T, B, {self.n_inputs}), "
                              f"got {tuple(ext.shape)}")
         carry = self.init_carry(ext.shape[1])
+        if self._use_fused:
+            active = torch.ones(ext.shape[:2], dtype=torch.int32,
+                                device=self.device)
+            carry, raster = self._fused_scan(carry, ext, active)
+            return {"spikes": raster, "v_final": carry["v"]}
         raster = torch.empty((ext.shape[0], ext.shape[1], self.n_phys),
                              dtype=torch.int32, device=self.device)
         for t in range(ext.shape[0]):

@@ -7,8 +7,8 @@ pass over the union SRAM image, and hands out streaming views
 configuration.
 
 Not taken yet: the stream-state connector (a deploy while streams are
-live raises instead of draining them), the async ``frontend=``, the mesh,
-K-step fusion (``fuse_steps``) and the metrics / tracer hooks.
+live raises instead of draining them), the async ``frontend=``, the mesh
+and the metrics / tracer hooks.
 """
 
 from __future__ import annotations
@@ -40,20 +40,24 @@ class AcceleratorSession:
 
     ``backend`` ("reference" | "cuda" | "cuda-f32") selects the engine
     backend for every run; ``device`` (default ``"cuda"``, raising without
-    a card) is where engines, carries and rasters live.
+    a card) is where engines, carries and rasters live. ``fuse_steps`` K
+    is the fused kernel window of every engine the session builds (1 =
+    single-step kernels); outputs are byte-identical for any K.
     """
 
     def __init__(self, config: cerebra_h.CerebraHConfig | None = None,
-                 backend: str = "reference", device="cuda"):
+                 backend: str = "reference", device="cuda",
+                 fuse_steps: int = 1):
         self.config = config or cerebra_h.CerebraHConfig()
         self.backend = backend
         self.device = resolve_device(device)
+        self.fuse_steps = int(fuse_steps)
         self.models: dict[str, DeployedModel] = {}
         self._next_cluster = 0
         self._next_input = 0
-        # {(model names, lif signature, backend): SpikeEngine}
+        # {(model names, lif signature, backend, K): SpikeEngine}
         self._fused_engines: dict = {}
-        # {(group names, sig, backend, slots, chunk, gate): SpikeServer}
+        # {(group names, sig, backend, K, slots, chunk, gate): SpikeServer}
         self._stream_servers: dict = {}
         # bumped on every deploy; stale ModelStream views then raise
         self._serve_epoch = 0
@@ -137,7 +141,8 @@ class AcceleratorSession:
         external sources concatenated in deployment order, recurrent rows
         summed (disjoint cluster ranges cannot overlap)."""
         sig = self._lif_signature(members[0].program)
-        key = (tuple(m.name for m in members), sig, self.backend)
+        key = (tuple(m.name for m in members), sig, self.backend,
+               self.fuse_steps)
         engine = self._fused_engines.get(key)
         if engine is not None:
             return engine
@@ -155,7 +160,7 @@ class AcceleratorSession:
         engine = SpikeEngine(W, n_ext, decay=DecaySpec.shift(decay_rate),
                              threshold_raw=threshold_raw,
                              reset_mode=reset_mode, backend=self.backend,
-                             device=self.device)
+                             fuse_steps=self.fuse_steps, device=self.device)
         self._fused_engines[key] = engine
         return engine
 
@@ -225,7 +230,8 @@ class AcceleratorSession:
         sig = self._lif_signature(model.program)
         group = [m for m in self.models.values()
                  if self._lif_signature(m.program) == sig]
-        group_key = (tuple(m.name for m in group), sig, self.backend)
+        group_key = (tuple(m.name for m in group), sig, self.backend,
+                     self.fuse_steps)
         # gate=None means the engine's own gate: one server key either way
         gate = gate if gate is not None else self._fused_engine(group).gate
         key = group_key + (int(n_slots), int(chunk_steps), gate)

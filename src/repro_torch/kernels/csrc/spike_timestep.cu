@@ -44,43 +44,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lif.cuh"
+
 namespace {
 
 constexpr int kBlockSrc = 128;  // sources per gate block
 constexpr int kTileCols = 128;  // neuron columns per CTA, one per thread
 constexpr int kWarps = kTileCols / 32;
-
-// decay_mode values (set by the Python wrapper); any other value (2) is
-// the fixed-point multiply fx_mul(v, decay_raw)
-constexpr int kDecayShiftSub = 0;  // v - (v >> shift)
-constexpr int kDecayShift = 1;     // v >> shift
-
-// reset_mode values; any other value (2) is hold
-constexpr int kResetZero = 0;
-constexpr int kResetSubtract = 1;
-
-__device__ __forceinline__ int32_t wrap_add(int32_t a, uint32_t b) {
-  return static_cast<int32_t>(static_cast<uint32_t>(a) + b);
-}
-
-__device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
-  return static_cast<int32_t>(static_cast<uint32_t>(a) -
-                              static_cast<uint32_t>(b));
-}
-
-// `>>` on int32_t compiles to an arithmetic shift (shr.s32), matching
-// jnp.right_shift on signed ints.
-__device__ __forceinline__ int32_t decay(int32_t v, int mode, int shift,
-                                         int32_t raw) {
-  if (mode == kDecayShiftSub) return wrap_sub(v, v >> shift);
-  if (mode == kDecayShift) return v >> shift;
-  // fx_mul: a_hi * b + (a_lo * b >> 16), 0 <= b <= 2^16, a_lo < 2^16
-  const int32_t a_hi = v >> 16;
-  const uint32_t a_lo = static_cast<uint32_t>(v) & 0xFFFFu;
-  const uint32_t b = static_cast<uint32_t>(raw);
-  const uint32_t lo = (a_lo * b) >> 16;
-  return static_cast<int32_t>(static_cast<uint32_t>(a_hi) * b + lo);
-}
 
 template <int BB, bool F32>
 __global__ void __launch_bounds__(kTileCols)
@@ -171,17 +141,8 @@ spike_timestep_kernel(const int32_t* __restrict__ act,
 #pragma unroll
   for (int r = 0; r < BB; ++r) {
     const size_t idx = static_cast<size_t>(row0 + r) * P + col;
-    const int32_t v_new = wrap_add(decay(v[idx], decay_mode, shift,
-                                         decay_raw), acc[r]);
-    const int32_t spk = v_new >= threshold ? 1 : 0;
-    int32_t vo = v_new;
-    if (reset_mode == kResetZero) {
-      vo = spk ? 0 : v_new;
-    } else if (reset_mode == kResetSubtract) {
-      vo = wrap_sub(v_new, spk ? threshold : 0);
-    }
-    v_out[idx] = vo;
-    spk_out[idx] = spk;
+    spk_out[idx] = lif::step(v[idx], acc[r], decay_mode, shift, decay_raw,
+                             threshold, reset_mode, &v_out[idx]);
   }
 }
 

@@ -3,7 +3,8 @@
 Twin of :mod:`repro.kernels.spike_timestep` (the Pallas
 ``spike_timestep_kernel``). The kernel is CUDA C++ for ``sm_90a``
 (``csrc/spike_timestep.cu``), built with ``nvcc`` at first use into
-``build/repro_torch/`` at the repository root and loaded with ``ctypes``.
+``build/repro_torch/`` at the repository root and loaded with ``ctypes``
+(:mod:`repro_torch.kernels._build`).
 
 Both functions take the padded operands :func:`repro_torch.kernels.ops.
 spike_timestep` prepares::
@@ -23,24 +24,21 @@ one to the other. ``LAUNCHES["spike_timestep"]`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 
 import torch
 
 from repro_torch.core.fixedpoint import wrap_int32
+from repro_torch.kernels._build import CSRC, LAUNCHES, CudaLibrary
 from repro_torch.kernels.epilogue import decay_and_fire, validate_decay
 
 __all__ = [
     "BLOCK_SRC",
     "LAUNCHES",
-    "NVCC_FLAGS",
+    "RESET_CODES",
     "SOURCE",
+    "block_product",
     "build",
+    "decay_codes",
     "exact_int32_matmul",
     "spike_timestep",
     "spike_timestep_cuda",
@@ -51,74 +49,38 @@ BLOCK_SRC = 128  # sources per gate block; the kernel's fixed tile
 _TILE_COLS = 128  # neuron columns per CTA
 _BLOCK_BATCHES = (1, 8)  # batch-tile heights the kernel is built for
 
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "spike_timestep.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-#: kernel launches since import (or since a caller reset it)
-LAUNCHES = {"spike_timestep": 0}
+SOURCE = CSRC / "spike_timestep.cu"
+_LIB = CudaLibrary(SOURCE, "spike_timestep_launch",
+                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
 
 _DECAY_SHIFT_SUB, _DECAY_SHIFT, _DECAY_MUL = 0, 1, 2
 _SHIFT_CODES = {0.125: (_DECAY_SHIFT_SUB, 3), 0.25: (_DECAY_SHIFT_SUB, 2),
                 0.5: (_DECAY_SHIFT_SUB, 1), 0.75: (_DECAY_SHIFT, 2)}
-_RESET_CODES = {"zero": 0, "subtract": 1, "hold": 2}
+RESET_CODES = {"zero": 0, "subtract": 1, "hold": 2}
 
 
-# --------------------------------------------------------------------------
-# build and bind
-# --------------------------------------------------------------------------
-def _build_dir() -> pathlib.Path:
-    # src/repro_torch/kernels/spike_timestep.py -> repository root
-    return pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found: the spike_timestep CUDA kernel is built from "
-            f"{SOURCE} at first use and needs the CUDA toolkit")
-    return nvcc
-
-
-def build() -> tuple[pathlib.Path, str]:
+def build():
     """Compile ``csrc/spike_timestep.cu`` unless a build of this exact
     source exists. Returns ``(library path, compiler output)``; the output
     is empty when the cached build was reused."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = _build_dir() / f"libspike_timestep_{digest}.so"
-    if out.exists():
-        return out, ""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    return _LIB.build()
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    fn = lib.spike_timestep_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib
+def decay_codes(decay_kind: str, decay_rate: float) -> tuple[int, int]:
+    """``(decay_mode, shift)`` as the kernels' ``lif.cuh`` reads them."""
+    if decay_kind == "shift":
+        return _SHIFT_CODES[decay_rate]
+    return _DECAY_MUL, 0
 
 
 # --------------------------------------------------------------------------
 def _check(activity, sources, weights, v, *, block_batch, decay_kind,
            decay_rate, decay_raw, reset_mode):
     validate_decay(decay_kind, decay_rate, decay_raw)
-    if reset_mode not in _RESET_CODES:
+    if reset_mode not in RESET_CODES:
         raise ValueError(f"unknown reset mode {reset_mode!r}; expected one "
-                         f"of {tuple(_RESET_CODES)}")
+                         f"of {tuple(RESET_CODES)}")
     for name, t in (("activity", activity), ("sources", sources),
                     ("weights", weights), ("v", v)):
         if t.dtype != torch.int32 or t.ndim != 2:
@@ -157,20 +119,17 @@ def spike_timestep_cuda(activity, sources, weights, v, *, threshold_raw: int,
     tensors = (activity, sources, weights, v)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("spike_timestep_cuda needs contiguous tensors")
-    if decay_kind == "shift":
-        decay_mode, shift = _SHIFT_CODES[decay_rate]
-    else:
-        decay_mode, shift = _DECAY_MUL, 0
+    decay_mode, shift = decay_codes(decay_kind, decay_rate)
     v_out = torch.empty_like(v)
     spikes = torch.empty_like(v)
-    lib = _library()
+    launch = _LIB.function
     with torch.cuda.device(sources.device):
         stream = torch.cuda.current_stream(sources.device).cuda_stream
-        err = lib.spike_timestep_launch(
+        err = launch(
             activity.data_ptr(), sources.data_ptr(), weights.data_ptr(),
             v.data_ptr(), v_out.data_ptr(), spikes.data_ptr(),
             B, S, P, block_batch, int(bool(use_f32)), decay_mode, shift,
-            int(decay_raw), int(threshold_raw), _RESET_CODES[reset_mode],
+            int(decay_raw), int(threshold_raw), RESET_CODES[reset_mode],
             stream)
     if err != 0:
         raise RuntimeError(f"spike_timestep kernel launch failed with CUDA "
@@ -195,6 +154,26 @@ def exact_int32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return wrap_int32(prod.to(torch.int64))
 
 
+def block_product(sources: torch.Tensor, weights: torch.Tensor, *,
+                  use_f32: bool) -> torch.Tensor:
+    """``sources @ weights`` as the kernels accumulate it, int32.
+
+    Exact mode wraps mod 2^32. In f32 mode each 128-row block is summed in
+    float32 and truncated toward zero before the wrapping int32
+    accumulate, as the kernels and the JAX ``use_mxu`` mode do; ``S`` must
+    then be a multiple of 128.
+    """
+    if not use_f32:
+        return exact_int32_matmul(sources, weights)
+    B, S = sources.shape
+    ns = S // BLOCK_SRC
+    s_blocks = sources.reshape(B, ns, BLOCK_SRC).transpose(0, 1)
+    w_blocks = weights.reshape(ns, BLOCK_SRC, weights.shape[1])
+    partial = torch.bmm(s_blocks.to(torch.float32),
+                        w_blocks.to(torch.float32))  # (ns, B, P)
+    return wrap_int32(partial.to(torch.int32).to(torch.int64).sum(dim=0))
+
+
 def spike_timestep_plain(activity, sources, weights, v, *, threshold_raw: int,
                          reset_mode: str, decay_kind: str = "shift",
                          decay_rate: float = 0.0, decay_raw: int = 0,
@@ -208,18 +187,10 @@ def spike_timestep_plain(activity, sources, weights, v, *, threshold_raw: int,
     float32 and truncated toward zero before the int32 accumulate, as the
     kernel and the JAX ``use_mxu`` mode do.
     """
-    B, S, P = _check(activity, sources, weights, v, block_batch=block_batch,
-                     decay_kind=decay_kind, decay_rate=decay_rate,
-                     decay_raw=decay_raw, reset_mode=reset_mode)
-    if use_f32:
-        ns = S // BLOCK_SRC
-        s_blocks = sources.reshape(B, ns, BLOCK_SRC).transpose(0, 1)
-        w_blocks = weights.reshape(ns, BLOCK_SRC, P)
-        partial = torch.bmm(s_blocks.to(torch.float32),
-                            w_blocks.to(torch.float32))  # (ns, B, P)
-        acc = wrap_int32(partial.to(torch.int32).to(torch.int64).sum(dim=0))
-    else:
-        acc = exact_int32_matmul(sources, weights)
+    _check(activity, sources, weights, v, block_batch=block_batch,
+           decay_kind=decay_kind, decay_rate=decay_rate, decay_raw=decay_raw,
+           reset_mode=reset_mode)
+    acc = block_product(sources, weights, use_f32=use_f32)
     return decay_and_fire(v, acc, decay_kind=decay_kind,
                           decay_rate=decay_rate, decay_raw=decay_raw,
                           threshold_raw=threshold_raw, reset_mode=reset_mode)

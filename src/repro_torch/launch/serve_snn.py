@@ -6,12 +6,13 @@ an :class:`~repro_torch.core.session.AcceleratorSession` on ``--device``
 Poisson request traffic through the streaming server: streams arrive per
 chunk-round, wait FIFO for a batch slot, push their stimulus in
 fixed-size chunks through one slot-batch step, and detach. Prints
-aggregate steps/s, per-stream latency and chunk dispatch times.
+aggregate steps/s, per-stream latency, chunk dispatch times and the
+kernel launches of the run (``--fuse-steps K`` serves K-step fused
+windows, one fused kernel launch each).
 
 Not ported yet: ``--async``, ``--qos*``, ``--burst*``, ``--slo-*``,
-``--mesh``/``--devices``, ``--connector``, ``--drain``, ``--fuse-steps``,
-``--metrics``, ``--trace``, ``--profile``, ``--flight``,
-``--json-summary``.
+``--mesh``/``--devices``, ``--connector``, ``--drain``, ``--metrics``,
+``--trace``, ``--profile``, ``--flight``, ``--json-summary``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from repro_torch.core.engine import BACKENDS, GATES
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.network import SNNetwork
 from repro_torch.core.session import AcceleratorSession
+from repro_torch.kernels import ops
 
 
 def make_net(rng, n_in: int, n_neurons: int, *, density: float = 0.25,
@@ -57,6 +59,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gate", choices=list(GATES), default=None,
                     help="event-gate granularity of the serving engine "
                          "(per-example = the batch-tile=1 serving mode)")
+    ap.add_argument("--fuse-steps", type=int, default=1,
+                    help="K timesteps per fused kernel window on the "
+                         "serving engine (kernel backends; weight blocks "
+                         "fetched once per window, outputs byte-identical "
+                         "for any K)")
     ap.add_argument("--models", type=int, default=2,
                     help="co-resident models sharing the fused engine")
     ap.add_argument("--n-inputs", type=int, default=24)
@@ -93,7 +100,8 @@ def main(argv=None) -> dict:
                          "chunk-round; the arrival plan cannot make "
                          "progress at rate 0)")
     rng = np.random.default_rng(args.seed)
-    sess = AcceleratorSession(backend=args.backend, device=args.device)
+    sess = AcceleratorSession(backend=args.backend, device=args.device,
+                              fuse_steps=args.fuse_steps)
     names = [f"snn{i}" for i in range(args.models)]
     for name in names:
         sess.deploy(name, make_net(rng, args.n_inputs, args.n_neurons))
@@ -105,8 +113,9 @@ def main(argv=None) -> dict:
     print(f"[serve-snn] {args.models} co-resident model(s) on one fused "
           f"engine ({server.engine.n_sources} sources x "
           f"{server.engine.n_phys} neurons), backend={args.backend}, "
-          f"gate={server.engine.gate}, device={server.device}, "
-          f"{args.n_slots} slots x {args.chunk}-step chunks")
+          f"gate={server.engine.gate}, fuse_steps={args.fuse_steps}, "
+          f"device={server.device}, {args.n_slots} slots x {args.chunk}-step "
+          f"chunks")
 
     requests = _request_plan(args, names, rng)
     # Poisson arrivals: number of new requests per chunk-round
@@ -122,6 +131,7 @@ def main(argv=None) -> dict:
     t_done: dict = {}
     dispatch_s: list = []
     rounds = 0
+    launches0 = dict(ops.LAUNCHES)
     t0 = time.perf_counter()
     while arrivals or live or server.scheduler.waiting:
         now = time.perf_counter()
@@ -150,6 +160,7 @@ def main(argv=None) -> dict:
             t_done[uid] = time.perf_counter()
         rounds += 1
     wall = time.perf_counter() - t0
+    launches = {k: n - launches0[k] for k, n in ops.LAUNCHES.items()}
 
     lats = np.asarray([t_done[u] - t_arrive[u] for u in t_done])
     disp = np.asarray(dispatch_s)
@@ -159,6 +170,8 @@ def main(argv=None) -> dict:
         "device": str(server.device),
         "backend": args.backend,
         "gate": server.engine.gate,
+        "fuse_steps": args.fuse_steps,
+        "launches": launches,
         "streams_done": len(t_done),
         "steps": int(steps),
         "wall_s": wall,
@@ -185,7 +198,10 @@ def _render(s: dict) -> list[str]:
     lines = [
         f"[serve-snn] {s['streams_done']} streams, {s['steps']} "
         f"stream-timesteps in {s['wall_s']:.2f}s over {s['rounds']} rounds "
-        f"-> {s['steps_per_s']:.0f} steps/s"]
+        f"-> {s['steps_per_s']:.0f} steps/s",
+        f"[serve-snn] fuse_steps={s['fuse_steps']}: "
+        f"{s['launches']['spike_timestep_fused']} fused window launches, "
+        f"{s['launches']['spike_timestep']} single-step launches"]
     lat = s["stream_latency_ms"]
     if lat is not None:
         lines.append(

@@ -123,17 +123,22 @@ class SpikeServer:
     Slot carries persist across calls on ``device`` (default ``"cuda"``;
     the engine is re-hosted there if it lives elsewhere); :meth:`detach`
     zeroes the evicted slot. ``gate`` re-hosts the engine under another
-    event-gate granularity (identical outputs).
+    event-gate granularity, ``fuse_steps`` under another K-step fused
+    window (identical outputs either way). ``chunk_steps`` need not be a
+    multiple of K: the engine pads a window's remainder with inactive
+    steps.
     """
 
     def __init__(self, engine: SpikeEngine, *, n_slots: int = 8,
                  chunk_steps: int = 8, gate: str | None = None,
-                 device="cuda"):
+                 fuse_steps: int | None = None, device="cuda"):
         if chunk_steps <= 0:
             raise ValueError(f"chunk_steps must be positive, got {chunk_steps}")
         engine = engine.to_device(resolve_device(device))
         if gate is not None:
             engine = engine.with_gate(gate)
+        if fuse_steps is not None:
+            engine = engine.with_fuse_steps(fuse_steps)
         self.engine = engine
         self.device = engine.device
         self.n_slots = int(n_slots)

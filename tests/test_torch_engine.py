@@ -149,8 +149,12 @@ def test_sources_raster_matches_jax():
 def test_unported_paths_raise_and_rehosting_is_identical():
     W = _weights(11)
     _, te = _pair("cuda", W)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
-        te.with_fuse_steps(4)
+    ext = _ext(12, T=7, B=2)
+    # the K-step fused window re-hosts the same program: same bytes
+    fused = te.with_fuse_steps(4)
+    assert fused.fuse_steps == 4 and fused._use_fused
+    for k in ("spikes", "v_final"):
+        assert torch.equal(fused.run(ext)[k], te.run(ext)[k])
     with pytest.raises(NotImplementedError):
         te.to_mesh(None)
     with pytest.raises(NotImplementedError, match="AER"):
@@ -159,7 +163,6 @@ def test_unported_paths_raise_and_rehosting_is_identical():
     ref4 = teng.SpikeEngine(W, N_IN, decay=teng.DecaySpec.shift(0.25),
                             threshold_raw=THRESH, reset_mode="zero",
                             fuse_steps=4, device="cpu")
-    ext = _ext(12, T=7, B=2)
     assert torch.equal(ref4.run(ext)["spikes"], te.run(ext)["spikes"])
     assert te.with_gate("batch-tile") is te
     assert torch.equal(te.with_gate("per-example").run(ext)["spikes"],

@@ -267,12 +267,17 @@ def test_serve_snn_main_runs_on_cpu(capsys):
     summary = tserve.main([
         "--device", "cpu", "--backend", "cuda", "--streams", "5",
         "--steps-per-stream", "10", "--n-inputs", "12", "--n-neurons", "20",
-        "--n-slots", "2", "--chunk", "4", "--gate", "per-example"])
+        "--n-slots", "2", "--chunk", "4", "--gate", "per-example",
+        "--fuse-steps", "3"])
     out = capsys.readouterr().out
     assert summary["streams_done"] == 5
     assert summary["steps"] == 5 * 10
     assert "steps/s" in out and "per-stream latency" in out
     assert "chunk dispatches" in out
+    assert summary["fuse_steps"] == 3
+    assert summary["launches"] == {"spike_timestep": 0,
+                                   "spike_timestep_fused": 0}  # CPU: plain
+    assert "fuse_steps=3: 0 fused window launches" in out
 
 
 def test_default_device_entry_points_raise_without_a_card():
@@ -304,12 +309,15 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
+        "new = ('repro_torch.events.trace', 'repro_torch.kernels._build', "
+        "'repro_torch.kernels.spike_timestep_fused')\n"
+        "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 15
+    assert int(r.stdout.strip()) >= 19
 
 
 def test_carry_from_jax_continues_byte_equal():
