@@ -6,12 +6,15 @@ builds the port's CUDA kernels from the sources in the checkout and then,
 in phases that each exit non-zero on failure:
 
 1. prints torch / CUDA / nvcc versions and the card's name and power limit,
-   and builds both kernels (one ``nvcc`` each, started together);
+   and builds the four kernels (one ``nvcc`` each, started together);
 2. holds every kernel byte for byte against its plain PyTorch version on
    the card: the single-step timestep over gates x accumulate modes x
-   decays x resets x activity x shapes, and the K-step fused window over
+   decays x resets x activity x shapes, the K-step fused window over
    K x gates x modes x decays x resets x shapes (the serving slice's shape,
-   a ragged one and the no-external-input edge), with masked slots;
+   a ragged one and the no-external-input edge), with masked slots, the
+   LIF update over shapes x decay rates x resets x thresholds on
+   full-range int32, and the rate encoder over shapes x seeds with
+   out-of-range, edge and NaN intensities;
 3. serves the slice end to end: two co-resident 784-256-10 MNIST nets on
    the full 32 x 32 Cerebra-H array, 8 slots x 8-step chunks, 20 streams of
    100 steps with churn, under each gate, on the kernel backends ("cuda",
@@ -21,12 +24,16 @@ in phases that each exit non-zero on failure:
    same plan again with ``fuse_steps`` 8 and 3 (ragged windows) on both
    kernel backends and gates: rasters byte-equal to the unfused run, and
    one fused launch per window issued (no single-step launch);
-4. runs the launcher ``repro_torch.launch.serve_snn`` on the card, with
-   ``--fuse-steps`` 1 and 8 in turns;
-5. times each kernel at the slice's shape, beside its plain version and
-   its bound: device time per call from CUDA-graph replays between CUDA
-   events (``ms``), and the time per call when issued eagerly from the
-   host.
+4. runs the entry points on the card: the launcher
+   ``repro_torch.launch.serve_snn`` with ``--fuse-steps`` 1 and 8 in
+   turns, and the port's kernel bench
+   ``repro_torch.benchmarks.kernel_bench``, the path of the LIF update and
+   the encoder (its document must be schema 2 with every axis on every
+   record, and both kernels must have been launched);
+5. times each kernel at its main path's shape, beside its plain version
+   and its bound: device time per call from CUDA-graph replays between
+   CUDA events (``ms``), and the time per call when issued eagerly from
+   the host.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -40,6 +47,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -62,6 +70,12 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def reset_launches(ops) -> None:
+    """Every kernel's launch count to 0, just before a main path runs."""
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
 
 
 # --------------------------------------------------------------------------
@@ -226,6 +240,90 @@ def phase_fused_vs_plain(torch, tsf, ops, bitpack) -> int:
     return worst
 
 
+def max_abs_diff(torch, got, want) -> int:
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               if g.numel() else 0 for g, w in zip(got, want))
+
+
+# the shapes of tests/test_kernels.py SHAPES_2D, the bench's and a large one
+LIF_SHAPES = ((1, 1), (3, 5), (8, 128), (7, 130), (16, 256), (33, 513),
+              (8, 1024), (4096, 4096))
+
+
+def phase_lif_vs_plain(torch, lif, ref) -> int:
+    """LIF kernel vs its plain version (``ref.lif_step_ref``) on the card,
+    torch.equal on both outputs, full-range int32 ``v`` and ``syn`` so the
+    adds and the subtract reset wrap."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    n_cases, worst = 0, 0
+    for shape in LIF_SHAPES:
+        v, syn = (torch.randint(-(1 << 31), 1 << 31, shape, generator=gen,
+                                device="cuda", dtype=torch.int64)
+                  .to(torch.int32) for _ in range(2))
+        for rate in (0.125, 0.25, 0.5, 0.75):
+            for reset in ("zero", "subtract", "hold"):
+                for thr in (1 << 16, -(1 << 20)):
+                    kw = dict(decay_rate=rate, threshold_raw=thr,
+                              reset_mode=reset)
+                    got = lif.lif_step_cuda(v, syn, **kw)
+                    torch.cuda.synchronize()
+                    want = ref.lif_step_ref(v, syn, **kw)
+                    err = max_abs_diff(torch, got, want)
+                    worst = max(worst, err)
+                    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                          f"lif_step kernel != plain at {shape} rate={rate} "
+                          f"reset={reset} threshold={thr}: max |diff| {err}")
+                    n_cases += 1
+    log(f"lif_step kernel == plain (torch.equal on v_out and spikes) in all "
+        f"{n_cases} cases: {len(LIF_SHAPES)} shapes x 4 rates x 3 resets x 2 "
+        f"thresholds, full-range int32; max |diff| {worst}")
+    return worst
+
+
+ENCODE_SHAPES = ((1, 1, 1), (4, 30, 16), (8, 128, 25), (9, 784, 5),
+                 (8, 784, 25))  # (B, D, T)
+ENCODE_SEEDS = (0, 42, -1, (1 << 31) - 1)
+
+
+def encode_intensities(torch, gen, B, D):
+    """Uniform on [-0.25, 1.25] float32, the first entries replaced by the
+    edge values: 0, 1, < 0, > 1, the largest float32 below 1, tiny ones,
+    NaN and the infinities."""
+    x = torch.rand((B, D), generator=gen, device="cuda") * 1.5 - 0.25
+    edge = torch.tensor([0.0, 1.0, -0.5, 1.5, 0.99999994, 1e-10, 2.0 ** -32,
+                         float("nan"), float("inf"), float("-inf")],
+                        device="cuda")
+    flat = x.view(-1)
+    n = min(flat.numel(), edge.numel())
+    flat[:n] = edge[:n]
+    return x
+
+
+def phase_encode_vs_plain(torch, enc, ref) -> int:
+    """Encoder kernel vs its plain version (``ref.poisson_encode_ref``) on
+    the card, torch.equal on the (T, B, D) raster."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    n_cases, worst, spikes = 0, 0, 0
+    for B, D, T in ENCODE_SHAPES:
+        x = encode_intensities(torch, gen, B, D)
+        for seed in ENCODE_SEEDS:
+            got = enc.poisson_encode_cuda(seed, x, T)
+            torch.cuda.synchronize()
+            want = ref.poisson_encode_ref(seed, x, T)
+            err = max_abs_diff(torch, (got,), (want,))
+            worst = max(worst, err)
+            check(got.shape == (T, B, D) and torch.equal(got, want),
+                  f"poisson_encode kernel != plain at B,D,T={B},{D},{T} "
+                  f"seed={seed}: max |diff| {err}")
+            spikes += int(got.sum())
+            n_cases += 1
+    log(f"poisson_encode kernel == plain (torch.equal on the raster) in all "
+        f"{n_cases} cases: {len(ENCODE_SHAPES)} shapes x "
+        f"{len(ENCODE_SEEDS)} seeds, edge and NaN intensities; {spikes} "
+        f"spikes; max |diff| {worst}")
+    return worst
+
+
 # --------------------------------------------------------------------------
 def mnist_nets(np, feedforward, cfg):
     """Two 784-256-10 nets from seeded numpy weights, the paper's LIF."""
@@ -355,8 +453,7 @@ def phase_serve(np, torch, ops, session_cls, feedforward, cfg):
         check(np.array_equal(want, ref[0]),
               "reference served raster != independent numpy timestep")
         for backend in ("cuda", "cuda-f32"):
-            ops.LAUNCHES["spike_timestep"] = 0  # just before the main path
-            ops.LAUNCHES["spike_timestep_fused"] = 0
+            reset_launches(ops)  # just before the main path
             t0 = time.perf_counter()
             got, pred, sess, _ = serve_once(np, torch, session_cls, cfg,
                                             nets, backend, gate, plan)
@@ -399,8 +496,7 @@ def serve_fused(np, torch, ops, session_cls, cfg, nets, plan, gate, ref,
     total = 0
     for K in (8, 3):
         for backend in ("cuda", "cuda-f32"):
-            ops.LAUNCHES["spike_timestep"] = 0  # just before the main path
-            ops.LAUNCHES["spike_timestep_fused"] = 0
+            reset_launches(ops)  # just before the main path
             t0 = time.perf_counter()
             got, pred, sess, dispatches = serve_once(
                 np, torch, session_cls, cfg, nets, backend, gate, plan,
@@ -439,8 +535,7 @@ def phase_launcher(torch, ops):
 
     runs = []
     for K in (1, 8, 8, 1):
-        ops.LAUNCHES["spike_timestep"] = 0
-        ops.LAUNCHES["spike_timestep_fused"] = 0
+        reset_launches(ops)
         summary = serve_snn.main([
             "--device", "cuda", "--backend", "cuda", "--models", "2",
             "--n-inputs", "784", "--n-neurons", "266",
@@ -462,6 +557,44 @@ def phase_launcher(torch, ops):
             f"{summary['dispatch_ms']['p50']:.2f} ms")
         runs.append(summary)
     return runs
+
+
+def phase_kernel_bench(torch, ops):
+    """The port's kernel bench on the card: the entry point whose path
+    runs the LIF update and the encoder. Returns the launch counts of the
+    run."""
+    from repro_torch.bench_schema import AXIS_DEFAULTS, SCHEMA_VERSION
+    from repro_torch.benchmarks import kernel_bench
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "kernel_bench.json"
+        reset_launches(ops)  # just before the main path
+        t0 = time.perf_counter()
+        kernel_bench.main([
+            "--device", "cuda", "--backend", "all", "--streaming",
+            "--sparsity", "0.05", "--fuse-steps", "1,8", "--json",
+            str(out)])
+        torch.cuda.synchronize()
+        launched = dict(ops.LAUNCHES)  # just after it
+        dt = time.perf_counter() - t0
+        doc = json.loads(out.read_text())
+    records = doc["results"]
+    check(doc["metadata"]["schema"] == SCHEMA_VERSION == 2,
+          f"kernel bench schema {doc['metadata'].get('schema')}")
+    check(doc["metadata"]["device"] != "cpu",
+          "kernel bench metadata does not name the card")
+    check(len(records) > 0 and all(
+        all(axis in rec for axis in AXIS_DEFAULTS) for rec in records),
+        "a kernel bench record lacks a schema-v2 axis")
+    for name in ("lif_step", "poisson_encode", "spike_timestep",
+                 "spike_timestep_fused"):
+        check(launched[name] > 0, f"the kernel bench launched no {name} "
+                                  f"kernel: {launched}")
+    check(all(r.get("counter_consistent", True) for r in records),
+          "fused traffic counters disagree")
+    log(f"kernel_bench: {len(records)} schema-{SCHEMA_VERSION} records in "
+        f"{dt:.1f} s on {doc['metadata']['device']}; LAUNCHES={launched}")
+    return launched
 
 
 # --------------------------------------------------------------------------
@@ -704,6 +837,64 @@ def phase_times_fused(np, torch, tsf, ops, bitpack, session_cls,
     return variants
 
 
+def time_elementwise(torch, name, kernel, plain, wrapper, nbytes, ops_n):
+    """Device time (CUDA-graph replay) of an elementwise kernel, its plain
+    version and its ops wrapper, eager times, and its bound."""
+    k_ms, p_ms, w_ms = (graph_time_ms(torch, f)
+                        for f in (kernel, plain, wrapper))
+    k_eager, p_eager, w_eager = (cuda_time_ms(torch, f, iters=100)
+                                 for f in (kernel, plain, wrapper))
+    got, want = kernel(), plain()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = max_abs_diff(torch, got, want)
+    check(err == 0, f"{name} timing inputs: kernel != plain")
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops_n / FP32_OPS_PER_S * 1e3
+    bound = max(b_ms, o_ms)
+    log(f"{name}: device time per call (CUDA graph) kernel "
+        f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, whole ops wrapper "
+        f"{w_ms * 1e3:.2f} us; issued eagerly kernel {k_eager * 1e3:.2f} us, "
+        f"plain {p_eager * 1e3:.2f} us, ops wrapper {w_eager * 1e3:.2f} us; "
+        f"bound {bound * 1e3:.3f} us ({nbytes / 1e3:.1f} KB at 3.35 TB/s, "
+        f"{ops_n} int ops) -> {100 * bound / k_ms:.1f}% of bound")
+    return {"ms": k_ms, "plain_ms": p_ms, "ops_ms": w_ms, "eager_ms": k_eager,
+            "eager_plain_ms": p_eager, "eager_ops_ms": w_eager,
+            "bound_ms": bound,
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "max_abs_err": err}
+
+
+def phase_times_elementwise(np, torch, lif, enc, ref, ops):
+    """The LIF update and the encoder at the kernel bench's shapes and
+    inputs: B 8 x P 1024, and T 25 x B 8 x D 784."""
+    rng = np.random.default_rng(0)
+    B, P, D, T = 8, 1024, 784, 25
+    v, syn = (torch.from_numpy(rng.integers(lo, -lo, (B, P)).astype(
+        np.int32)).cuda() for lo in (-2**20, -2**16))
+    kw = dict(decay_rate=0.25, threshold_raw=1 << 16, reset_mode="zero")
+    # v and syn read once, v_out and spikes written once; decay (shift,
+    # subtract), add, compare, reset: 5 integer operations per element
+    lif_t = time_elementwise(
+        torch, "lif_step", lambda: lif.lif_step_cuda(v, syn, **kw),
+        lambda: ref.lif_step_ref(v, syn, **kw),
+        lambda: ops.lif_step(v, syn, **kw), 4 * 4 * B * P, 5 * B * P)
+    x = torch.from_numpy(rng.random((B, D)).astype(np.float32)).cuda()
+    # intensities read once, the raster written once; per element the
+    # hash (3 multiplies and 3 xors of the counters, 3 shifts, 3 xors and
+    # 2 multiplies of the finaliser) and the compare and or, per (b, d)
+    # the clip, scale, minimum and conversion
+    enc_t = time_elementwise(
+        torch, "poisson_encode", lambda: enc.poisson_encode_cuda(0, x, T),
+        lambda: ref.poisson_encode_ref(0, x, T),
+        lambda: ops.poisson_encode(0, x, T),
+        4 * B * D + 4 * T * B * D, 16 * T * B * D + 5 * B * D)
+    log("library_ms (lif_step, poisson_encode): no single PyTorch call "
+        "computes the LIF update or the counter-hash encoder (torch.rand is "
+        "another generator); none is timed")
+    return lif_t, enc_t
+
+
 # --------------------------------------------------------------------------
 def main() -> None:
     t_start = time.perf_counter()
@@ -723,7 +914,11 @@ def main() -> None:
     from repro_torch.configs import snap_v_snn as cfg
     from repro_torch.core.network import feedforward
     from repro_torch.core.session import AcceleratorSession
-    from repro_torch.kernels import bitpack, ops
+    from repro_torch.kernels import bitpack
+    from repro_torch.kernels import lif_step as lif
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import poisson_encode as enc
+    from repro_torch.kernels import ref
     from repro_torch.kernels import spike_timestep as ts
     from repro_torch.kernels import spike_timestep_fused as tsf
 
@@ -736,11 +931,14 @@ def main() -> None:
 
     log("phase 1: environment")
     card = phase_environment(torch)
-    phase_build([("spike_timestep", ts), ("spike_timestep_fused", tsf)])
+    phase_build([("spike_timestep", ts), ("spike_timestep_fused", tsf),
+                 ("lif_step", lif), ("poisson_encode", enc)])
 
     log("phase 2: kernels vs plain versions on the card")
     worst = phase_kernel_vs_plain(torch, ts, ops)
     worst_fused = phase_fused_vs_plain(torch, tsf, ops, bitpack)
+    worst_lif = phase_lif_vs_plain(torch, lif, ref)
+    worst_enc = phase_encode_vs_plain(torch, enc, ref)
 
     log("phase 3: the serving slice end to end, unfused and fused")
     launches, served_steps, fused_launches, rates = phase_serve(
@@ -749,8 +947,10 @@ def main() -> None:
         log(f"served {backend} ({gate}) fuse_steps={K}: {rate:.1f} "
             f"stream-steps/s")
 
-    log("phase 4: the launcher, --fuse-steps 1 and 8 in turns")
+    log("phase 4: the entry points: the launcher, --fuse-steps 1 and 8 in "
+        "turns, and the kernel bench")
     launcher = phase_launcher(torch, ops)
+    bench_launches = phase_kernel_bench(torch, ops)
 
     log("phase 5: times on the card")
     variants = phase_times(np, torch, ts, ops, AcceleratorSession,
@@ -758,6 +958,7 @@ def main() -> None:
     fused_variants = phase_times_fused(np, torch, tsf, ops, bitpack,
                                        AcceleratorSession, feedforward, cfg,
                                        variants)
+    lif_t, enc_t = phase_times_elementwise(np, torch, lif, enc, ref, ops)
     main_v = variants["batch-tile/exact"]
     main_f = fused_variants["batch-tile/exact"]
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
@@ -797,7 +998,21 @@ def main() -> None:
             f"{b}/{g}/K={k}": r for (b, g, k), r in sorted(rates.items())},
         "launcher_steps_per_s": launcher_rates,
         "card": card,
-    }]}), flush=True)
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": bench_launches[name],
+        **t,
+        "max_abs_err": max(worst_k, t["max_abs_err"]),
+        "library_ms": None,
+        "main_path": "repro_torch.benchmarks.kernel_bench",
+        "card": card,
+    } for name, replaces, worst_k, t in (
+        ("lif_step", "src/repro/kernels/lif_step.py:27", worst_lif, lif_t),
+        ("poisson_encode", "src/repro/kernels/poisson_encode.py:38",
+         worst_enc, enc_t))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -26,7 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel launches since import (or since a caller reset them), one count
 #: per kernel; only a wrapper that launches its kernel increments its own
-LAUNCHES = {"spike_timestep": 0, "spike_timestep_fused": 0}
+LAUNCHES = {"spike_timestep": 0, "spike_timestep_fused": 0, "lif_step": 0,
+            "poisson_encode": 0}
 
 
 def _build_dir() -> pathlib.Path:

@@ -1,10 +1,11 @@
-"""Public wrappers around the timestep kernels.
+"""Public wrappers around the port's kernels.
 
-Twin of :mod:`repro.kernels.ops` for :func:`spike_timestep` and
+Twin of :mod:`repro.kernels.ops`. For :func:`spike_timestep` and
 :func:`spike_timestep_fused`: pad the operands to the kernels' block
 multiples, build the per-(batch tile, source block) activity scalars from
 bitpacked sources, run the kernel (CUDA tensors) or its plain version
-(CPU tensors), and un-pad.
+(CPU tensors), and un-pad. :func:`lif_step` and :func:`poisson_encode`
+need no padding: their kernels take any shape.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import bitpack
+from repro_torch.kernels import lif_step as _lif
+from repro_torch.kernels import poisson_encode as _enc
 from repro_torch.kernels import spike_timestep as _ts
 from repro_torch.kernels import spike_timestep_fused as _tsf
 from repro_torch.kernels._build import LAUNCHES
@@ -21,13 +24,16 @@ __all__ = [
     "ext_gate_activity",
     "fused_weights",
     "gate_activity",
+    "lif_step",
+    "poisson_encode",
     "spike_timestep",
     "spike_timestep_fused",
     "window_gate_activity",
 ]
 
-# LAUNCHES: kernel launch counts, ``LAUNCHES["spike_timestep"]`` and
-# ``LAUNCHES["spike_timestep_fused"]``; only a kernel launch increments one
+# LAUNCHES: kernel launch counts, one per kernel (``"spike_timestep"``,
+# ``"spike_timestep_fused"``, ``"lif_step"``, ``"poisson_encode"``); only a
+# kernel launch increments one
 
 
 def _pad_to(x: torch.Tensor, axis: int, multiple: int) -> torch.Tensor:
@@ -231,3 +237,30 @@ def ext_gate_activity(ext, *, block_batch: int = 8,
     return window_gate_activity(packed.reshape(Tp // K, K, Bp,
                                                packed.shape[-1]),
                                 block_batch=block_batch, block_src=block_src)
+
+
+# --------------------------------------------------------------------------
+def lif_step(v, syn, *, decay_rate: float, threshold_raw: int,
+             reset_mode: str = "zero"):
+    """Fused LIF update. v, syn: (B, N) int32 -> (v_out, spikes).
+
+    The JAX twin's ``interpret`` knob (Pallas dispatch) has no counterpart:
+    the device of ``v`` picks the kernel (CUDA) or the plain version (CPU).
+    """
+    if v.ndim != 2:
+        raise ValueError(f"v must be (B, N), got {tuple(v.shape)}")
+    return _lif.lif_step(v, syn, decay_rate=decay_rate,
+                         threshold_raw=threshold_raw, reset_mode=reset_mode)
+
+
+def poisson_encode(seed: int, intensities, num_steps: int) -> torch.Tensor:
+    """Hardware rate encoder. intensities: (B, D) -> (T, B, D) int32.
+
+    ``intensities`` (a tensor, or a numpy array taken to the CPU) are cast
+    to float32 first; ``seed`` is an int32. The JAX twin's ``interpret``
+    (Pallas dispatch) and ``block_batch`` (TPU tiling) knobs have no
+    counterpart: the kernel takes any shape, and the device of
+    ``intensities`` picks the kernel (CUDA) or the plain version (CPU).
+    """
+    return _enc.poisson_encode(seed, torch.as_tensor(intensities),
+                               num_steps)

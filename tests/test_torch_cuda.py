@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import engine as teng  # noqa: E402
 from repro_torch.kernels import bitpack, ops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import spike_timestep_fused as tsf  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -119,3 +120,38 @@ def test_fused_engine_equals_reference_on_the_card(card, backend, gate):
     assert int(ref["spikes"].sum()) > 0
     assert torch.equal(ref["spikes"], got["spikes"])
     assert torch.equal(ref["v_final"], got["v_final"])
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 130), (8, 1024), (300, 513)])
+@pytest.mark.parametrize("rate", [0.125, 0.25, 0.5, 0.75])
+@pytest.mark.parametrize("reset", ["zero", "subtract", "hold"])
+def test_lif_step_kernel_equals_plain_on_the_card(card, shape, rate, reset):
+    rng = np.random.default_rng(shape[0] * 7 + shape[1])
+    v, syn = (rng.integers(-2**31, 2**31, shape).astype(np.int32)
+              for _ in range(2))  # full range: adds and resets wrap
+    kw = dict(decay_rate=rate, threshold_raw=1 << 16, reset_mode=reset)
+    before = ops.LAUNCHES["lif_step"]
+    got = ops.lif_step(torch.from_numpy(v).to(card),
+                       torch.from_numpy(syn).to(card), **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["lif_step"] == before + 1
+    want = kref.lif_step_ref(torch.from_numpy(v), torch.from_numpy(syn), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("B,D,T", [(1, 1, 1), (4, 30, 16), (9, 784, 5),
+                                   (8, 784, 25)])
+@pytest.mark.parametrize("seed", [0, -1, 2**31 - 1])
+def test_poisson_encode_kernel_equals_plain_on_the_card(card, B, D, T, seed):
+    rng = np.random.default_rng(B + D + T)
+    x = rng.uniform(-0.25, 1.25, (B, D)).astype(np.float32)
+    edge = [np.nan, 0.0, 1.0, 0.99999994, 2.0 ** -32, np.inf]
+    x.reshape(-1)[:len(edge)] = edge[:x.size]
+    before = ops.LAUNCHES["poisson_encode"]
+    got = ops.poisson_encode(seed, torch.from_numpy(x).to(card), T)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["poisson_encode"] == before + 1
+    want = kref.poisson_encode_ref(seed, torch.from_numpy(x), T)
+    assert got.shape == (T, B, D)
+    assert torch.equal(got.cpu(), want)

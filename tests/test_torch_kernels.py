@@ -1,0 +1,240 @@
+"""The port's ``lif_step`` / ``poisson_encode`` wrappers and its ``ref``
+oracles against the JAX package's.
+
+Twin of tests/test_kernels.py for the two elementwise kernels. On the CPU
+the port's wrappers run their plain versions (the oracles of
+``repro_torch.kernels.ref``); the JAX wrappers run the Pallas kernels in
+interpret mode, as tests/test_kernels.py does. Every comparison is exact
+equality on the same numpy inputs.
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import fixedpoint as fxp  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+THRESH = 1 << 16  # 1.0 in Q16.16
+SHAPES_2D = [(1, 1), (3, 5), (8, 128), (7, 130), (16, 256), (33, 513)]
+RESETS = ["zero", "subtract", "hold"]
+# the cross-product of tests/test_kernels.py, trimmed as there: every rate
+# and reset on two representative shapes, rate 0.25 / zero on the others
+LIF_CASES = [(shape, rate, reset)
+             for shape in SHAPES_2D
+             for rate in fxp.SHIFT_DECAY_RATES for reset in RESETS
+             if shape in ((8, 128), (7, 130))
+             or (rate == 0.25 and reset == "zero")]
+ENCODE_SHAPES = [(1, 1, 1), (4, 30, 16), (8, 128, 25), (9, 784, 5)]
+SEEDS = [0, 42, -1, 2**31 - 1, -2**31]
+EDGE = [0.0, 1.0, -0.5, 1.5, 0.99999994, 1e-10, 2.0**-32, np.inf, -np.inf]
+
+
+def _lif_all(v, syn, **kw):
+    """(JAX ops, JAX ref, port ops, port ref), each (v_out, spikes) numpy."""
+    jv, js = jnp.asarray(v), jnp.asarray(syn)
+    tv, ts = torch.from_numpy(v), torch.from_numpy(syn)
+    outs = [jops.lif_step(jv, js, **kw), jref.lif_step_ref(jv, js, **kw),
+            tops.lif_step(tv, ts, **kw), tref.lif_step_ref(tv, ts, **kw)]
+    return [tuple(np.asarray(x) for x in out) for out in outs]
+
+
+def _assert_all_equal(outs):
+    want = outs[0]
+    for got in outs[1:]:
+        for g, w in zip(got, want):
+            assert g.dtype == np.int32
+            assert np.array_equal(g, w)
+
+
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("shape,rate,reset", LIF_CASES)
+def test_lif_step_sweep(shape, rate, reset):
+    rng = np.random.default_rng(shape[0] * 1000 + shape[1])
+    v = rng.integers(-2**22, 2**22, shape).astype(np.int32)
+    syn = rng.integers(-2**18, 2**18, shape).astype(np.int32)
+    _assert_all_equal(_lif_all(v, syn, decay_rate=rate,
+                               threshold_raw=THRESH, reset_mode=reset))
+
+
+@pytest.mark.parametrize("rate", fxp.SHIFT_DECAY_RATES)
+@pytest.mark.parametrize("reset", RESETS)
+def test_lif_step_full_range_wraps(rate, reset):
+    """Full-range int32 v and syn: the integrate add and the subtract
+    reset wrap mod 2^32 identically; 0.75 is ``v >> 2``."""
+    rng = np.random.default_rng(int(rate * 8) + 10 * RESETS.index(reset))
+    v, syn = (rng.integers(-2**31, 2**31, (7, 130)).astype(np.int32)
+              for _ in range(2))
+    v[0, :4] = [-2**31, 2**31 - 1, -1, 0]
+    syn[0, :4] = [-1, 1, -2**31, 2**31 - 1]
+    outs = _lif_all(v, syn, decay_rate=rate, threshold_raw=-(1 << 20),
+                    reset_mode=reset)
+    _assert_all_equal(outs)
+    v_out = outs[2][0].astype(np.int64)
+    decayed = v.astype(np.int64) >> 2 if rate == 0.75 else (
+        v.astype(np.int64) - (v.astype(np.int64) >> int(np.log2(1 / rate))))
+    wrapped = (decayed + syn + 2**31) % 2**32 - 2**31
+    assert np.array_equal(v_out[outs[2][1] == 0], wrapped[outs[2][1] == 0])
+
+
+def test_lif_step_ref_takes_any_rank():
+    rng = np.random.default_rng(5)
+    v = rng.integers(-2**22, 2**22, (2, 3, 5)).astype(np.int32)
+    syn = rng.integers(-2**18, 2**18, (2, 3, 5)).astype(np.int32)
+    kw = dict(decay_rate=0.5, threshold_raw=THRESH, reset_mode="subtract")
+    want = jref.lif_step_ref(jnp.asarray(v), jnp.asarray(syn), **kw)
+    got = tref.lif_step_ref(torch.from_numpy(v), torch.from_numpy(syn), **kw)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+def test_lif_step_rejects_what_the_kernel_does_not_take():
+    v = torch.zeros((2, 3), dtype=torch.int32)
+    kw = dict(threshold_raw=THRESH)
+    with pytest.raises(ValueError, match="decay_rate"):
+        tops.lif_step(v, v, decay_rate=0.3, **kw)
+    with pytest.raises(ValueError, match="reset mode"):
+        tops.lif_step(v, v, decay_rate=0.25, reset_mode="bogus", **kw)
+    with pytest.raises(ValueError, match="int32"):
+        tops.lif_step(v, v.to(torch.int64), decay_rate=0.25, **kw)
+    with pytest.raises(ValueError, match="differ"):
+        tops.lif_step(v, v[:1], decay_rate=0.25, **kw)
+    with pytest.raises(ValueError, match=r"\(B, N\)"):
+        tops.lif_step(v[0], v[0], decay_rate=0.25, **kw)
+
+
+# --------------------------------------------------------------------------
+def _intensities(B, D, seed):
+    """Uniform on [-0.25, 1.25] float32 with the edge values first."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.25, 1.25, (B, D)).astype(np.float32)
+    x.reshape(-1)[:len(EDGE)] = EDGE[:x.size]
+    return x
+
+
+@pytest.mark.parametrize("B,D,T", ENCODE_SHAPES)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_poisson_encode_sweep(B, D, T, seed):
+    x = _intensities(B, D, B + D + T)
+    want = np.asarray(jops.poisson_encode(seed, jnp.asarray(x), T))
+    got = tops.poisson_encode(seed, torch.from_numpy(x), T)
+    assert got.dtype == torch.int32 and got.shape == (T, B, D)
+    assert np.array_equal(got.numpy(), want)
+    plain = tref.poisson_encode_ref(seed, torch.from_numpy(x), T).numpy()
+    assert np.array_equal(plain, want)
+    if seed >= 0:  # the JAX oracle's jnp.uint32(seed) refuses a negative
+        assert np.array_equal(
+            np.asarray(jref.poisson_encode_ref(seed, x, T)), want)
+
+
+def test_poisson_encode_casts_float64_to_float32_first():
+    """float64 numpy intensities are rounded to float32 before the clip
+    and the threshold, as the JAX wrapper's ``astype(float32)`` does."""
+    rng = np.random.default_rng(21)
+    x = rng.random((5, 200))
+    x[0, :4] = [0.99999999, 1.0 - 2.0**-25, 2.0**-33, 0.5 + 2.0**-30]
+    want = np.asarray(jops.poisson_encode(7, x, 9))
+    assert np.array_equal(tops.poisson_encode(7, x, 9).numpy(), want)
+    assert want[:, 0, 0].all()  # 0.99999999 rounds to 1.0 in float32
+
+
+def test_poisson_encode_nan_never_fires():
+    """NaN is pinned to the JAX result: the clip and the minimum carry it
+    into ``astype(uint32)``, which gives 0, so the spike never fires."""
+    x = np.full((3, 40), np.nan, np.float32)
+    x[:, 20:] = 0.9
+    want = np.asarray(jops.poisson_encode(3, x, 50))
+    assert np.array_equal(np.asarray(jref.poisson_encode_ref(3, x, 50)), want)
+    assert not want[:, :, :20].any() and want[:, :, 20:].any()
+    got = tops.poisson_encode(3, torch.from_numpy(x), 50).numpy()
+    assert np.array_equal(got, want)
+
+
+def test_hash_u32_ref_edge_counters():
+    edges = [0, 1, 2**31, 2**32 - 1]
+    for seed in edges:
+        for t, b, d in itertools.product(edges, repeat=3):
+            want = int(jref.hash_u32_ref(seed, t, b, d))
+            assert int(tref.hash_u32_ref(seed, t, b, d)) == want
+    # broadcast tensors, as the encoder calls it
+    t = np.arange(3, dtype=np.uint32)[:, None, None]
+    b = np.array([0, 2**31, 2**32 - 1], np.uint32)[None, :, None]
+    d = np.arange(70000, 70100, dtype=np.uint32)[None, None, :]
+    want = np.asarray(jref.hash_u32_ref(12345, jnp.asarray(t),
+                                        jnp.asarray(b), jnp.asarray(d)))
+    got = tref.hash_u32_ref(12345, torch.from_numpy(t.astype(np.int64)),
+                            torch.from_numpy(b.astype(np.int64)),
+                            torch.from_numpy(d.astype(np.int64)))
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), want.astype(np.int64))
+
+
+def test_poisson_encode_extremes_and_rate():
+    B, D, T = 16, 64, 200
+    x = torch.cat([torch.zeros((B, D // 2)), torch.ones((B, D // 2))], -1)
+    s = tops.poisson_encode(0, x, T)
+    assert float(s[:, :, : D // 2].sum()) == 0.0       # p=0 never fires
+    assert float(s[:, :, D // 2:].float().mean()) == 1.0  # p=1 always fires
+    xm = torch.full((B, D), 0.3)
+    sm = tops.poisson_encode(3, xm, T)
+    assert abs(float(sm.float().mean()) - 0.3) < 0.01
+    assert np.array_equal(sm.numpy(),
+                          np.asarray(jops.poisson_encode(3, xm.numpy(), T)))
+
+
+def test_poisson_encode_seed_sensitivity():
+    x = torch.full((4, 32), 0.5)
+    a = tops.poisson_encode(1, x, 20)
+    b = tops.poisson_encode(2, x, 20)
+    assert not torch.equal(a, b)
+    assert torch.equal(a, tops.poisson_encode(1, x, 20))
+
+
+def test_poisson_encode_rejects_a_seed_outside_int32():
+    x = torch.full((2, 3), 0.5)
+    with pytest.raises(OverflowError):  # jnp.asarray([seed], jnp.int32)
+        jops.poisson_encode(2**31, x.numpy(), 4)
+    with pytest.raises(ValueError, match="int32"):
+        tops.poisson_encode(2**31, x, 4)
+    with pytest.raises(ValueError, match=r"\(B, D\)"):
+        tops.poisson_encode(0, x[0], 4)
+
+
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("B,S,P", [(1, 1, 1), (2, 40, 33), (5, 160, 300),
+                                   (8, 128, 128), (3, 1056, 64)])
+def test_spike_timestep_ref_matches_jax(B, S, P):
+    rng = np.random.default_rng(B * 1000 + S + P)
+    src = (rng.random((B, S)) < 0.15).astype(np.int32)
+    W = rng.integers(-2**31, 2**31, (S, P)).astype(np.int32)  # sums wrap
+    v = rng.integers(-2**18, 2**18, (B, P)).astype(np.int32)
+    kw = dict(decay_rate=0.25, threshold_raw=THRESH, reset_mode="zero")
+    want = jref.spike_timestep_ref(src, W, v, **kw)
+    got = tref.spike_timestep_ref(torch.from_numpy(src), torch.from_numpy(W),
+                                  torch.from_numpy(v), **kw)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    # and the port's gated step agrees with its oracle
+    step = tops.spike_timestep(torch.from_numpy(src), torch.from_numpy(W),
+                               torch.from_numpy(v), **kw)
+    for g, w in zip(step, got[:2]):
+        assert torch.equal(g, w)
+
+
+def test_cpu_runs_leave_launches_at_zero():
+    before = dict(tops.LAUNCHES)
+    assert {"lif_step", "poisson_encode"} <= set(before)
+    v = torch.ones((4, 9), dtype=torch.int32)
+    tops.lif_step(v, v, decay_rate=0.125, threshold_raw=THRESH)
+    tops.poisson_encode(5, torch.full((4, 9), 0.5), 3)
+    assert tops.LAUNCHES == before  # the plain versions are not launches

@@ -276,7 +276,9 @@ def test_serve_snn_main_runs_on_cpu(capsys):
     assert "chunk dispatches" in out
     assert summary["fuse_steps"] == 3
     assert summary["launches"] == {"spike_timestep": 0,
-                                   "spike_timestep_fused": 0}  # CPU: plain
+                                   "spike_timestep_fused": 0,
+                                   "lif_step": 0,
+                                   "poisson_encode": 0}  # CPU: plain
     assert "fuse_steps=3: 0 fused window launches" in out
 
 
@@ -310,14 +312,18 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "new = ('repro_torch.events.trace', 'repro_torch.kernels._build', "
-        "'repro_torch.kernels.spike_timestep_fused')\n"
+        "'repro_torch.kernels.spike_timestep_fused', "
+        "'repro_torch.kernels.ref', 'repro_torch.kernels.lif_step', "
+        "'repro_torch.kernels.poisson_encode', 'repro_torch.bench_schema', "
+        "'repro_torch.benchmarks.common', "
+        "'repro_torch.benchmarks.kernel_bench')\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 19
+    assert int(r.stdout.strip()) >= 34
 
 
 def test_carry_from_jax_continues_byte_equal():
