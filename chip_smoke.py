@@ -14,7 +14,10 @@ in phases that each exit non-zero on failure:
    a ragged one and the no-external-input edge), with masked slots, the
    LIF update over shapes x decay rates x resets x thresholds on
    full-range int32, and the rate encoder over shapes x seeds with
-   out-of-range, edge and NaN intensities;
+   out-of-range, edge and NaN intensities; then the split designs of both
+   timestep kernels under stress (S >= 4096, all-silent and dense
+   sources, ragged B and P, P = 4096, K = 16), each case also launched
+   twice into reused buffers and replayed from a CUDA graph;
 3. serves the slice end to end: two co-resident 784-256-10 MNIST nets on
    the full 32 x 32 Cerebra-H array, 8 slots x 8-step chunks, 20 streams of
    100 steps with churn, under each gate, on the kernel backends ("cuda",
@@ -32,8 +35,9 @@ in phases that each exit non-zero on failure:
    record, and both kernels must have been launched);
 5. times each kernel at its main path's shape, beside its plain version
    and its bound: device time per call from CUDA-graph replays between
-   CUDA events (``ms``), and the time per call when issued eagerly from
-   the host.
+   CUDA events (``ms``), the time per call when issued eagerly from the
+   host, and the device time of each launch of a call (memset, product,
+   epilogue; memset, external leg, recurrent leg) from ``torch.profiler``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -237,6 +242,131 @@ def phase_fused_vs_plain(torch, tsf, ops, bitpack) -> int:
     log(f"fused kernel == plain (torch.equal on v_out, spike carry and "
         f"raster) in all {n_cases} cases: 3 shapes x 2 modes x 5 K x 2 "
         f"gates x 3 decays x 3 resets, masked slots; max |diff| {worst}")
+    return worst
+
+
+def capture_graph(torch, fn, calls=1, warmup=1):
+    """``calls`` calls of ``fn`` captured in one CUDA graph, after
+    ``warmup`` calls on a side stream; returns the graph and the outputs
+    of the last captured call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            out = fn()
+    return graph, out
+
+
+def graph_replay(torch, fn):
+    """``fn()`` captured in a CUDA graph and replayed once; its outputs."""
+    graph, out = capture_graph(torch, fn)
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def check_relaunch(torch, fn, want, what) -> int:
+    """``fn()`` against the plain outputs ``want``; then, with the first
+    outputs poisoned and freed so the caching allocator hands their memory
+    to the next call, a back-to-back launch must give identical bytes, and
+    a CUDA-graph replay must equal the eager call. Returns max |diff|."""
+    first = fn()
+    torch.cuda.synchronize()
+    err = max_abs_diff(torch, first, want)
+    check(all(torch.equal(g, w) for g, w in zip(first, want)),
+          f"{what}: kernel != plain, max |diff| {err}")
+    snapshot = [t.clone() for t in first]
+    for t in first:
+        t.fill_(-1)
+    del first
+    second = fn()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(second, snapshot)),
+          f"{what}: a second launch into reused buffers changed the bytes")
+    del second
+    replay = graph_replay(torch, fn)
+    check(all(torch.equal(a, b) for a, b in zip(replay, snapshot)),
+          f"{what}: the CUDA-graph replay != the eager call")
+    return err
+
+
+# stress shapes of the split designs: many source blocks (S >= 4096),
+# ragged B and P, and P = 4096, where neuron tiles outnumber a cluster
+SPLIT_SHAPES = ((8, 4200, 1024), (13, 2592, 130), (5, 1000, 4096))
+FUSED_SPLIT_SHAPES = ((8, 4200, 1024), (13, 200, 130), (5, 300, 4096))
+SPLIT_DENSITIES = (0.0, 0.05, 1.0)  # all silent, served-like, dense
+
+
+def phase_split_stress(torch, ts, tsf, ops, bitpack) -> int:
+    """Both redesigned kernels on the stress shapes: all-silent, sparse and
+    dense sources, both gates and modes, K = 16 windows; each case checked
+    by :func:`check_relaunch`."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+
+    def rand_int(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int64).to(torch.int32)
+
+    def spikes(shape, density):
+        return (torch.rand(shape, generator=gen, device="cuda")
+                < density).to(torch.int32)
+
+    n_cases, worst = 0, 0
+    for B, S, P in SPLIT_SHAPES:
+        for use_f32 in (False, True):
+            hi = (1 << 16) if use_f32 else (1 << 31)  # f32: block sums < 2^23
+            W, v = rand_int(-hi, hi, (S, P)), rand_int(-(1 << 31), 1 << 31,
+                                                       (B, P))
+            for density in SPLIT_DENSITIES:
+                src = spikes((B, S), density)
+                for block_batch in (8, 1):
+                    act, sp, wp, vp = padded_operands(torch, ops, src, W, v,
+                                                      block_batch)
+                    kw = dict(threshold_raw=1 << 16, reset_mode="subtract",
+                              decay_kind="shift", decay_rate=0.125,
+                              use_f32=use_f32, block_batch=block_batch)
+                    want = ts.spike_timestep_plain(act, sp, wp, vp, **kw)
+                    worst = max(worst, check_relaunch(
+                        torch, lambda: ts.spike_timestep_cuda(  # noqa: B023
+                            act, sp, wp, vp, **kw), want,
+                        f"spike_timestep stress B,S,P={B},{S},{P} "
+                        f"f32={use_f32} density={density} "
+                        f"block_batch={block_batch}"))
+                    n_cases += 1
+    K = 16
+    for B, n_in, P in FUSED_SPLIT_SHAPES:
+        for use_f32 in (False, True):
+            hi = (1 << 15) if use_f32 else (1 << 31)
+            W = rand_int(-hi, hi, (n_in + P, P))
+            v = rand_int(-(1 << 20), 1 << 20, (B, P))
+            active = spikes((K, B), 0.75)  # masked slots
+            for density in SPLIT_DENSITIES:
+                ext, spk = spikes((K, B, n_in), density), spikes((B, P),
+                                                                 density)
+                for block_batch in (8, 1):
+                    args = fused_operands(ops, bitpack, ext, spk, W, v,
+                                          active, n_in, block_batch)
+                    kw = dict(threshold_raw=1 << 16, reset_mode="zero",
+                              decay_kind="shift", decay_rate=0.25,
+                              use_f32=use_f32, block_batch=block_batch)
+                    want = tsf.spike_timestep_fused_plain(*args, **kw)
+                    worst = max(worst, check_relaunch(
+                        torch, lambda: tsf.spike_timestep_fused_cuda(  # noqa
+                            *args, **kw), want,
+                        f"spike_timestep_fused stress B,n_in,P={B},{n_in},"
+                        f"{P} K={K} f32={use_f32} density={density} "
+                        f"block_batch={block_batch}"))
+                    n_cases += 1
+    log(f"split designs under stress: kernel == plain, a second launch into "
+        f"reused buffers byte-identical, CUDA-graph replay == eager, in all "
+        f"{n_cases} cases: single step {SPLIT_SHAPES} and fused K={K} "
+        f"{FUSED_SPLIT_SHAPES} (B, S or n_inputs, P) x 2 modes x densities "
+        f"{SPLIT_DENSITIES} x 2 gates; max |diff| {worst}")
     return worst
 
 
@@ -638,16 +768,7 @@ def graph_time_ms(torch, fn, calls=20, replays=20) -> float:
     """Device time per call: ``calls`` calls captured in one CUDA graph,
     replayed ``replays`` times between CUDA events, so the host's cost of
     issuing each call (Python, argument checks, ctypes) is not counted."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+    graph, _ = capture_graph(torch, fn, calls=calls, warmup=3)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -658,6 +779,28 @@ def graph_time_ms(torch, fn, calls=20, replays=20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (calls * replays)
+
+
+def launch_breakdown_us(torch, fn, n=20) -> dict:
+    """Device time per call of each launch ``fn()`` issues (kernels and
+    memsets, by name), from ``torch.profiler`` over ``n`` eager calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "device_time_total", 0)
+        if t > 0:  # "void (anonymous namespace)::name<8, false>(...)" -> name
+            m = re.search(r"(\w+)(?:<[^>]*>)?\(",
+                          evt.key.replace("(anonymous namespace)", ""))
+            out[m.group(1) if m else evt.key] = t / n
+    return out
 
 
 def phase_times(np, torch, ts, ops, session_cls, feedforward, cfg):
@@ -704,13 +847,17 @@ def phase_times(np, torch, ts, ops, session_cls, feedforward, cfg):
             b_ms = nbytes / HBM_BYTES_PER_S * 1e3
             o_ms = ops_n / FP32_OPS_PER_S * 1e3
             bound = max(b_ms, o_ms)
+            plan = ts.launch_plan(Bp, Sp, Pp, bb)
+            legs = launch_breakdown_us(torch, kernel)
             variants[f"{gate}/{mode}"] = {
                 "ms": k_ms, "plain_ms": p_ms, "ops_step_ms": step_ms,
                 "eager_ms": k_eager, "eager_plain_ms": p_eager,
                 "eager_ops_step_ms": step_eager, "bound_ms": bound,
                 "bound_by": "bytes" if b_ms >= o_ms else "operations",
                 "max_abs_err": err, "active_blocks": blocks,
-                "grid_ctas": (Pp // 128) * (Bp // bb)}
+                "grid_ctas": plan["product_ctas"],
+                "epilogue_ctas": plan["epilogue_ctas"],
+                "launch_us": legs}
             log(f"spike_timestep {gate}/{mode}: device time per call "
                 f"(CUDA graph) kernel {k_ms * 1e3:.1f} us, plain "
                 f"{p_ms * 1e3:.1f} us, whole ops step {step_ms * 1e3:.1f} us;"
@@ -719,7 +866,9 @@ def phase_times(np, torch, ts, ops, session_cls, feedforward, cfg):
                 f" bound {bound * 1e3:.2f} us "
                 f"({nbytes / 1e6:.2f} MB at 3.35 TB/s) -> "
                 f"{100 * bound / k_ms:.1f}% of bound; {blocks} active gate "
-                f"blocks, {(Pp // 128) * (Bp // bb)} CTAs")
+                f"blocks, {plan['product_ctas']} product CTAs; launches "
+                f"(profiler, us): "
+                + ", ".join(f"{n} {t:.2f}" for n, t in legs.items()))
     log("library_ms: no single PyTorch call computes the gated integer "
         "product together with the LIF epilogue; none is timed")
     return variants
@@ -813,6 +962,8 @@ def phase_times_fused(np, torch, tsf, ops, bitpack, session_cls,
             o_ms = ops_n / FP32_OPS_PER_S * 1e3
             bound = max(b_ms, o_ms)
             step_ms = single[f"{gate}/{mode}"]["ms"]
+            plan = tsf.launch_plan(K, Bp, w_ext.shape[0], Pp, bb)
+            legs = launch_breakdown_us(torch, kernel)
             variants[f"{gate}/{mode}"] = {
                 "ms": k_ms, "ms_per_step": k_ms / K, "plain_ms": p_ms,
                 "ops_window_ms": w_ms, "eager_ms": k_eager,
@@ -821,7 +972,8 @@ def phase_times_fused(np, torch, tsf, ops, bitpack, session_cls,
                 "bound_by": "bytes" if b_ms >= o_ms else "operations",
                 "single_step_ms": step_ms, "max_abs_err": err,
                 "active_ext_blocks": blocks,
-                "grid_ctas": min(8, Pp // 128) * (Bp // bb)}
+                "ext_ctas": plan["ext_ctas"], "rec_ctas": plan["rec_ctas"],
+                "launch_us": legs}
             log(f"spike_timestep_fused {gate}/{mode}: device time per "
                 f"window (CUDA graph) kernel {k_ms * 1e3:.1f} us = "
                 f"{k_ms / K * 1e3:.1f} us per step (single-step kernel "
@@ -831,7 +983,10 @@ def phase_times_fused(np, torch, tsf, ops, bitpack, session_cls,
                 f"window {w_eager * 1e3:.1f} us; bound {bound * 1e3:.2f} us "
                 f"({nbytes / 1e6:.2f} MB at 3.35 TB/s) -> "
                 f"{100 * bound / k_ms:.1f}% of bound; {blocks} active "
-                f"external gate blocks")
+                f"external gate blocks; {plan['ext_ctas']} external-leg and "
+                f"{plan['rec_ctas']} recurrent-leg CTAs; launches "
+                f"(profiler, us): "
+                + ", ".join(f"{n} {t:.2f}" for n, t in legs.items()))
     log("library_ms (fused): no single PyTorch call computes the gated "
         "K-step window with its LIF epilogues; none is timed")
     return variants
@@ -937,6 +1092,7 @@ def main() -> None:
     log("phase 2: kernels vs plain versions on the card")
     worst = phase_kernel_vs_plain(torch, ts, ops)
     worst_fused = phase_fused_vs_plain(torch, tsf, ops, bitpack)
+    worst_stress = phase_split_stress(torch, ts, tsf, ops, bitpack)
     worst_lif = phase_lif_vs_plain(torch, lif, ref)
     worst_enc = phase_encode_vs_plain(torch, enc, ref)
 
@@ -971,7 +1127,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/spike_timestep.cu",
         "replaces": "src/repro/kernels/spike_timestep.py:50",
         "launches": launches,
-        "max_abs_err": max(worst, main_v["max_abs_err"]),
+        "max_abs_err": max(worst, worst_stress, main_v["max_abs_err"]),
         "ms": main_v["ms"],
         "plain_ms": main_v["plain_ms"],
         "bound_ms": main_v["bound_ms"],
@@ -986,7 +1142,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/spike_timestep_fused.cu",
         "replaces": "src/repro/kernels/spike_timestep.py:208",
         "launches": fused_launches,
-        "max_abs_err": max(worst_fused, main_f["max_abs_err"]),
+        "max_abs_err": max(worst_fused, worst_stress, main_f["max_abs_err"]),
         "ms": main_f["ms"],
         "plain_ms": main_f["plain_ms"],
         "bound_ms": main_f["bound_ms"],

@@ -13,167 +13,170 @@
 //
 // with every add wrapping mod 2^32, as the JAX reference does.
 //
-// Design (simple on purpose; a later change redesigns it):
-//   * grid = (P/128 neuron tiles, B/BB batch tiles); one thread per neuron
-//     column, 128 threads per CTA, BB register accumulators per thread.
-//   * the CTA walks the S/128 source blocks; it reads its own activity
-//     scalar (the TPU kernel's scalar prefetch) and skips a silent block
-//     outright — no weight load, no accumulate. The branch is uniform.
-//   * an active block's BB x 128 source tile is staged in shared memory,
-//     the rows with any spike are compacted into a list (warp ballots),
-//     and each listed W row is read once, coalesced across the CTA, and
-//     added into the BB accumulators.
-//   * the decay / integrate / fire / reset epilogue runs in registers.
+// What bounds it: bytes. At the serving slice's shape (B = 8 slots,
+// S = 2592 padded to 2688, P = 1024) only the weight rows of sources that
+// spike have to be read, ~800 rows of 4 KB at a served step, 3.3 MB: about
+// 1 us at the 3.35 TB/s of HBM3. The TPU kernel walks the source blocks in
+// order on one core; a grid of one CTA per (batch tile, neuron tile) that
+// does the same leaves 8 CTAs on a 132-SM card, each making ~200 dependent
+// row round trips.
 //
-// What bounds it at the serving slice's shape (B = 8 slots, S = 2592
-// padded to 2688, P = 1024): the weight image is 2688 x 1024 int32, about
-// 11 MB, and at most the rows of spiking sources have to be read, so the
-// function is bound by bytes (weight rows over the 3.35 TB/s of HBM3). This
-// simple design is further held back by its few CTAs (8 under the
-// batch-tile gate, 64 under the per-example gate, on a 132-SM card) and
-// by one dependent row load per spiking source; PERF.md records its time
-// against that bound.
+// Design: the source loop is spread over the card.
+//   * Product launch, grid = (P/128 neuron tiles, S/128 source blocks,
+//     B/BB batch tiles), 4 warps per CTA: 8 x 21 = 168 CTAs under the
+//     batch-tile gate at the slice shape. A CTA whose gate scalar (the
+//     TPU kernel's scalar prefetch) is 0 exits at once.
+//   * A CTA stages its BB x 128 source tile and lists the spiking (slot,
+//     source) pairs (ballots and a prefix over the 4 warps); each warp
+//     takes an even share of the list and reads its weight rows 16 bytes
+//     a lane, 8 rows in flight, adding each row once per spike, times the
+//     source value (block_product.cuh). A list of rows with BB
+//     coefficients each would cost BB multiply-adds per row, though a
+//     served row spikes in about one slot. The block's per-slot sums meet
+//     in shared memory and are added into a (B, P) uint32 accumulator,
+//     zeroed by this entry point, with wrapping atomicAdd: the same bits
+//     in any order (see block_product.cuh, also for the f32 split).
+//   * Epilogue launch: one thread per (b, p) reads the accumulator and runs
+//     the decay / integrate / fire / reset of lif.cuh.
+//   The memset and both launches go on the caller's stream, so a CUDA graph
+//   captures them whole; nothing is kept between calls.
 //
 // Accumulate modes:
 //   exact (use_f32 = 0): uint32 wrapping adds, bit-exact always.
-//   f32   (use_f32 = 1): each 128-row block is summed in fp32 FMA (no TF32,
-//     no fast-math), truncated toward zero (__float2int_rz, as JAX's
-//     astype(int32)), then added into the uint32 accumulator. Exact while
-//     every block sum stays under 2^24, which the engine enforces at build.
+//   f32   (use_f32 = 1): each warp sums its piece of the block's rows in
+//     fp32 FMA (no TF32, no fast-math) and truncates it toward zero before
+//     the uint32 adds. Exact while every block sum stays under 2^24, which
+//     the engine enforces at build.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "block_product.cuh"
 #include "lif.cuh"
 
 namespace {
 
-constexpr int kBlockSrc = 128;  // sources per gate block
-constexpr int kTileCols = 128;  // neuron columns per CTA, one per thread
-constexpr int kWarps = kTileCols / 32;
+using blockprod::kBlockSrc;
+using blockprod::kFull;
+using blockprod::kTileCols;
+
+constexpr int kWarps = kBlockSrc / 32;  // warp w owns sources 32w..32w+31
+constexpr int kThreads = kBlockSrc;
+constexpr int kEpilogueThreads = 256;
+constexpr int kLoads = 8;  // weight rows in flight per warp
+
+struct SourceCoef {  // the staged source value of a (slot, row) entry
+  const int32_t (*s_src)[kBlockSrc];
+  __device__ __forceinline__ int32_t operator()(uint32_t e) const {
+    return s_src[e >> blockprod::kSlotShift][e & blockprod::kRowBits];
+  }
+};
 
 template <int BB, bool F32>
-__global__ void __launch_bounds__(kTileCols)
-spike_timestep_kernel(const int32_t* __restrict__ act,
-                      const int32_t* __restrict__ src,
-                      const int32_t* __restrict__ w,
-                      const int32_t* __restrict__ v,
-                      int32_t* __restrict__ v_out,
-                      int32_t* __restrict__ spk_out,
-                      int S, int P, int decay_mode, int shift,
-                      int32_t decay_raw, int32_t threshold, int reset_mode) {
+__global__ void __launch_bounds__(kThreads)
+spike_block_kernel(const int32_t* __restrict__ act,
+                   const int32_t* __restrict__ src,
+                   const int32_t* __restrict__ w,
+                   uint32_t* __restrict__ acc_out, int S, int P) {
   __shared__ int32_t s_src[BB][kBlockSrc];
-  __shared__ int16_t s_rows[kBlockSrc];
-  __shared__ int s_count[kWarps];
+  __shared__ uint32_t s_list[BB * kBlockSrc];  // (slot, row) entries
+  __shared__ uint32_t s_acc[BB * kTileCols];   // the block's sums
+  __shared__ int s_cnt[BB][kWarps];
+
+  const int ns = S / kBlockSrc;
+  const int sb = blockIdx.y;
+  const int tile = blockIdx.z;
+  if (act[tile * ns + sb] == 0) return;  // event gate, uniform per CTA
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int col = blockIdx.x * kTileCols + tid;
-  const int tile = blockIdx.y;
   const int row0 = tile * BB;
-  const int ns = S / kBlockSrc;
+  const int col0 = blockIdx.x * kTileCols;
 
-  uint32_t acc[BB];
-#pragma unroll
-  for (int r = 0; r < BB; ++r) acc[r] = 0u;
-
-  for (int sb = 0; sb < ns; ++sb) {
-    // event gate: one scalar per (batch tile, source block), uniform
-    if (act[tile * ns + sb] == 0) continue;
-
-    // stage the BB x 128 source tile; thread tid owns source row tid
-    int any = 0;
-#pragma unroll
-    for (int r = 0; r < BB; ++r) {
-      const int32_t s =
-          src[static_cast<size_t>(row0 + r) * S + sb * kBlockSrc + tid];
-      s_src[r][tid] = s;
-      any |= s;
-    }
-    // compact the rows with any spike, in ascending order
-    const unsigned mask = __ballot_sync(0xFFFFFFFFu, any != 0);
-    if (lane == 0) s_count[warp] = __popc(mask);
-    __syncthreads();
-    int base = 0, n_rows = 0;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) {
-      const int c = s_count[k];
-      base += (k < warp) ? c : 0;
-      n_rows += c;
-    }
-    if (any != 0) {
-      s_rows[base + __popc(mask & ((1u << lane) - 1u))] =
-          static_cast<int16_t>(tid);
-    }
-    __syncthreads();
-
-    const int32_t* wb = w + static_cast<size_t>(sb) * kBlockSrc * P + col;
-    if (F32) {
-      float facc[BB];
-#pragma unroll
-      for (int r = 0; r < BB; ++r) facc[r] = 0.0f;
-#pragma unroll 4
-      for (int i = 0; i < n_rows; ++i) {
-        const int j = s_rows[i];
-        const float wv = static_cast<float>(wb[static_cast<size_t>(j) * P]);
-#pragma unroll
-        for (int r = 0; r < BB; ++r)
-          facc[r] = __fmaf_rn(static_cast<float>(s_src[r][j]), wv, facc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < BB; ++r)
-        acc[r] += static_cast<uint32_t>(__float2int_rz(facc[r]));
-    } else {
-#pragma unroll 4
-      for (int i = 0; i < n_rows; ++i) {
-        const int j = s_rows[i];
-        const uint32_t wv =
-            static_cast<uint32_t>(wb[static_cast<size_t>(j) * P]);
-#pragma unroll
-        for (int r = 0; r < BB; ++r)
-          acc[r] += static_cast<uint32_t>(s_src[r][j]) * wv;
-      }
-    }
-    __syncthreads();  // s_src / s_rows are rewritten by the next block
-  }
-
+  // stage the BB x 128 source tile; thread tid owns source row tid
+  unsigned ball[BB];
 #pragma unroll
   for (int r = 0; r < BB; ++r) {
-    const size_t idx = static_cast<size_t>(row0 + r) * P + col;
-    spk_out[idx] = lif::step(v[idx], acc[r], decay_mode, shift, decay_raw,
-                             threshold, reset_mode, &v_out[idx]);
+    const int32_t s =
+        src[static_cast<size_t>(row0 + r) * S + sb * kBlockSrc + tid];
+    s_src[r][tid] = s;
+    ball[r] = __ballot_sync(kFull, s != 0);
+    if (lane == 0) s_cnt[r][warp] = __popc(ball[r]);
+  }
+  for (int i = tid; i < BB * kTileCols; i += kThreads) s_acc[i] = 0u;
+  __syncthreads();
+  // list the spiking (slot, row) pairs, slot-major and ascending
+  int total = 0;
+#pragma unroll
+  for (int r = 0; r < BB; ++r) {
+    int off = total;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      off += k < warp ? s_cnt[r][k] : 0;
+      total += s_cnt[r][k];
+    }
+    if ((ball[r] >> lane) & 1u)
+      s_list[off + __popc(ball[r] & ((1u << lane) - 1u))] =
+          static_cast<uint32_t>(tid)
+          | (static_cast<uint32_t>(r) << blockprod::kSlotShift);
+  }
+  __syncthreads();
+
+  // each warp takes an even share of the list, whatever the slots
+  const int lo = warp * total / kWarps;
+  const int hi = (warp + 1) * total / kWarps;
+  blockprod::warp_rows<F32, kLoads>(
+      s_list + lo, hi - lo, w + static_cast<size_t>(sb) * kBlockSrc * P, P,
+      col0 + lane * 4, SourceCoef{s_src}, s_acc, lane);
+  __syncthreads();
+
+  // one column per thread: the block's sums into the accumulator
+#pragma unroll
+  for (int r = 0; r < BB; ++r) {
+    const uint32_t s = s_acc[r * kTileCols + tid];
+    if (s != 0u)
+      atomicAdd(acc_out + static_cast<size_t>(row0 + r) * P + col0 + tid, s);
   }
 }
 
-template <int BB>
-cudaError_t launch_bb(bool use_f32, dim3 grid, cudaStream_t stream,
-                      const int32_t* act, const int32_t* src,
-                      const int32_t* w, const int32_t* v, int32_t* v_out,
-                      int32_t* spk_out, int S, int P, int decay_mode,
+__global__ void __launch_bounds__(kEpilogueThreads)
+spike_epilogue_kernel(const uint32_t* __restrict__ acc,
+                      const int32_t* __restrict__ v,
+                      int32_t* __restrict__ v_out,
+                      int32_t* __restrict__ spk_out, int n, int decay_mode,
                       int shift, int32_t decay_raw, int32_t threshold,
                       int reset_mode) {
+  const int i = blockIdx.x * kEpilogueThreads + threadIdx.x;
+  if (i >= n) return;
+  spk_out[i] = lif::step(v[i], acc[i], decay_mode, shift, decay_raw,
+                         threshold, reset_mode, &v_out[i]);
+}
+
+template <int BB>
+void launch_product(bool use_f32, dim3 grid, cudaStream_t stream,
+                    const int32_t* act, const int32_t* src, const int32_t* w,
+                    uint32_t* acc, int S, int P) {
   if (use_f32) {
-    spike_timestep_kernel<BB, true><<<grid, kTileCols, 0, stream>>>(
-        act, src, w, v, v_out, spk_out, S, P, decay_mode, shift, decay_raw,
-        threshold, reset_mode);
+    spike_block_kernel<BB, true><<<grid, kThreads, 0, stream>>>(act, src, w,
+                                                                acc, S, P);
   } else {
-    spike_timestep_kernel<BB, false><<<grid, kTileCols, 0, stream>>>(
-        act, src, w, v, v_out, spk_out, S, P, decay_mode, shift, decay_raw,
-        threshold, reset_mode);
+    spike_block_kernel<BB, false><<<grid, kThreads, 0, stream>>>(act, src, w,
+                                                                 acc, S, P);
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. block_batch is 1 (per-example
-// gate) or 8 (batch-tile gate). All arrays are int32, row-major and
+// gate) or 8 (batch-tile gate). All arrays are 32-bit, row-major and
 // contiguous, pre-padded by the wrapper: B % block_batch == 0,
-// S % 128 == 0, P % 128 == 0; act is (B / block_batch, S / 128). Returns
-// cudaGetLastError() after the launch (0 on success).
+// S % 128 == 0, P % 128 == 0; act is (B / block_batch, S / 128); w is
+// 16-byte aligned; acc is (B, P) scratch, zeroed here. Issues the memset,
+// the product launch and the epilogue launch on `stream` and returns the
+// first CUDA error (0 on success).
 extern "C" int spike_timestep_launch(const void* act, const void* src,
-                                     const void* w, const void* v,
+                                     const void* w, const void* v, void* acc,
                                      void* v_out, void* spk_out, int B,
                                      int S, int P, int block_batch,
                                      int use_f32, int decay_mode, int shift,
@@ -181,30 +184,40 @@ extern "C" int spike_timestep_launch(const void* act, const void* src,
                                      int reset_mode, void* stream) {
   if (B <= 0 || S <= 0 || P <= 0 || block_batch <= 0 ||
       B % block_batch != 0 || S % kBlockSrc != 0 || P % kTileCols != 0 ||
-      B / block_batch > 65535) {
+      B / block_batch > 65535 || S / kBlockSrc > 65535 ||
+      static_cast<long long>(B) * P > (1LL << 31) - 1 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(P / kTileCols, B / block_batch);
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* a = static_cast<const int32_t*>(act);
+  auto* a = static_cast<uint32_t*>(acc);
+  const int n = B * P;
+  cudaError_t err =
+      cudaMemsetAsync(a, 0, sizeof(uint32_t) * static_cast<size_t>(n), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const dim3 grid(P / kTileCols, S / kBlockSrc, B / block_batch);
+  const auto* ac = static_cast<const int32_t*>(act);
   const auto* x = static_cast<const int32_t*>(src);
   const auto* wt = static_cast<const int32_t*>(w);
-  const auto* vv = static_cast<const int32_t*>(v);
-  auto* vo = static_cast<int32_t*>(v_out);
-  auto* so = static_cast<int32_t*>(spk_out);
   const bool f32 = use_f32 != 0;
-  cudaError_t err;
   switch (block_batch) {
     case 1:
-      err = launch_bb<1>(f32, grid, s, a, x, wt, vv, vo, so, S, P,
-                         decay_mode, shift, decay_raw, threshold, reset_mode);
+      launch_product<1>(f32, grid, s, ac, x, wt, a, S, P);
       break;
     case 8:
-      err = launch_bb<8>(f32, grid, s, a, x, wt, vv, vo, so, S, P,
-                         decay_mode, shift, decay_raw, threshold, reset_mode);
+      launch_product<8>(f32, grid, s, ac, x, wt, a, S, P);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  spike_epilogue_kernel<<<(n + kEpilogueThreads - 1) / kEpilogueThreads,
+                          kEpilogueThreads, 0, s>>>(
+      a, static_cast<const int32_t*>(v), static_cast<int32_t*>(v_out),
+      static_cast<int32_t*>(spk_out), n, decay_mode, shift, decay_raw,
+      threshold, reset_mode);
+  return static_cast<int>(cudaGetLastError());
 }

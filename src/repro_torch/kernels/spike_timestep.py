@@ -18,7 +18,10 @@ and return ``(v_out, spikes)``, each ``(B, P)`` int32.
 
 :func:`spike_timestep` launches the kernel for CUDA tensors and runs
 :func:`spike_timestep_plain` for CPU tensors; there is no fallback from
-one to the other. ``LAUNCHES["spike_timestep"]`` counts kernel launches.
+one to the other. One call is a memset of a ``(B, P)`` uint32 scratch
+accumulator, the product launch over (neuron tile, source block, batch
+tile) and the epilogue launch (:func:`launch_plan`);
+``LAUNCHES["spike_timestep"]`` counts one per call.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ __all__ = [
     "build",
     "decay_codes",
     "exact_int32_matmul",
+    "launch_plan",
     "spike_timestep",
     "spike_timestep_cuda",
     "spike_timestep_plain",
@@ -48,10 +52,12 @@ __all__ = [
 BLOCK_SRC = 128  # sources per gate block; the kernel's fixed tile
 _TILE_COLS = 128  # neuron columns per CTA
 _BLOCK_BATCHES = (1, 8)  # batch-tile heights the kernel is built for
+_MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
+_EPILOGUE_THREADS = 256
 
 SOURCE = CSRC / "spike_timestep.cu"
 _LIB = CudaLibrary(SOURCE, "spike_timestep_launch",
-                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                   [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
 
 _DECAY_SHIFT_SUB, _DECAY_SHIFT, _DECAY_MUL = 0, 1, 2
@@ -72,6 +78,31 @@ def decay_codes(decay_kind: str, decay_rate: float) -> tuple[int, int]:
     if decay_kind == "shift":
         return _SHIFT_CODES[decay_rate]
     return _DECAY_MUL, 0
+
+
+def launch_plan(B: int, S: int, P: int, block_batch: int) -> dict:
+    """The launches of one kernel call on padded ``(B, S)`` sources and
+    ``(S, P)`` weights, as ``csrc/spike_timestep.cu`` issues them.
+
+    ``product_grid`` is (neuron tiles, source blocks, batch tiles), one
+    CTA each (those whose gate scalar is 0 exit at once);
+    ``epilogue_ctas`` run the LIF epilogue over the ``scratch`` (B, P)
+    accumulator. Raises ``ValueError`` on a shape the kernel does not
+    take.
+    """
+    if (min(B, S, P, block_batch) <= 0 or B % block_batch or S % BLOCK_SRC
+            or P % _TILE_COLS):
+        raise ValueError(f"shapes must be pre-padded to block multiples: "
+                         f"B {B}, S {S}, P {P}, block_batch {block_batch}")
+    grid = (P // _TILE_COLS, S // BLOCK_SRC, B // block_batch)
+    if max(grid[1:]) > _MAX_GRID_YZ or B * P >= 1 << 31:
+        raise ValueError(f"the kernel takes at most {_MAX_GRID_YZ} source "
+                         f"blocks and batch tiles and B * P < 2^31, got B "
+                         f"{B}, S {S}, P {P}, block_batch {block_batch}")
+    return {"product_grid": grid,
+            "product_ctas": grid[0] * grid[1] * grid[2],
+            "epilogue_ctas": -(-B * P // _EPILOGUE_THREADS),
+            "scratch": (B, P)}
 
 
 # --------------------------------------------------------------------------
@@ -119,7 +150,13 @@ def spike_timestep_cuda(activity, sources, weights, v, *, threshold_raw: int,
     tensors = (activity, sources, weights, v)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("spike_timestep_cuda needs contiguous tensors")
+    if weights.data_ptr() % 16:
+        raise ValueError("spike_timestep_cuda reads weight rows 16 bytes at "
+                         "a time: weights must be 16-byte aligned")
+    plan = launch_plan(B, S, P, block_batch)
     decay_mode, shift = decay_codes(decay_kind, decay_rate)
+    acc = torch.empty(plan["scratch"], dtype=torch.int32,
+                      device=sources.device)  # zeroed by the entry point
     v_out = torch.empty_like(v)
     spikes = torch.empty_like(v)
     launch = _LIB.function
@@ -127,7 +164,8 @@ def spike_timestep_cuda(activity, sources, weights, v, *, threshold_raw: int,
         stream = torch.cuda.current_stream(sources.device).cuda_stream
         err = launch(
             activity.data_ptr(), sources.data_ptr(), weights.data_ptr(),
-            v.data_ptr(), v_out.data_ptr(), spikes.data_ptr(),
+            v.data_ptr(), acc.data_ptr(), v_out.data_ptr(),
+            spikes.data_ptr(),
             B, S, P, block_batch, int(bool(use_f32)), decay_mode, shift,
             int(decay_raw), int(threshold_raw), RESET_CODES[reset_mode],
             stream)

@@ -21,8 +21,10 @@ each ``(B, P)``, and the emitted ``(K, B, P)`` raster, all int32.
 
 :func:`spike_timestep_fused` launches the kernel for CUDA tensors and
 runs :func:`spike_timestep_fused_plain` for CPU tensors; there is no
-fallback from one to the other. ``LAUNCHES["spike_timestep_fused"]``
-counts kernel launches.
+fallback from one to the other. One call is a memset of the raster, the
+external leg over (neuron tile, external block, batch tile) and the
+recurrent K-step leg, one cluster per batch tile (:func:`launch_plan`);
+``LAUNCHES["spike_timestep_fused"]`` counts one per call (per window).
 """
 
 from __future__ import annotations
@@ -45,12 +47,19 @@ __all__ = [
     "LAUNCHES",
     "SOURCE",
     "build",
+    "launch_plan",
     "spike_timestep_fused",
     "spike_timestep_fused_cuda",
     "spike_timestep_fused_plain",
 ]
 
 _BLOCK_BATCHES = (1, 8)  # batch-tile heights the kernel is built for
+_TILE_COLS = 128  # neuron columns per CTA tile
+_EXT_WARPS, _REC_WARPS = 8, 16  # warps per CTA of each leg
+_MAX_CLUSTER = 8  # portable thread-block cluster size
+_PASS_WORDS = 256  # spike words the recurrent leg lists per pass
+MAX_SMEM = 227 * 1024  # dynamic shared memory a CTA may opt in to
+_MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
 
 SOURCE = CSRC / "spike_timestep_fused.cu"
 _LIB = CudaLibrary(SOURCE, "spike_timestep_fused_launch",
@@ -62,6 +71,51 @@ def build():
     """Compile ``csrc/spike_timestep_fused.cu`` unless a build of this
     exact source exists. Returns ``(library path, compiler output)``."""
     return _LIB.build()
+
+
+def launch_plan(K: int, B: int, n_ext: int, P: int,
+                block_batch: int) -> dict:
+    """The launches of one window on padded operands, as
+    ``csrc/spike_timestep_fused.cu`` issues them.
+
+    The external leg runs one CTA per ``ext_grid`` entry (neuron tiles,
+    external blocks, batch tiles; a CTA whose gate scalar is 0 exits at
+    once), staging 128 x 128 weights and the window's spike lanes in
+    ``ext_smem`` bytes. The recurrent leg runs ``rec_grid`` = (cluster,
+    batch tiles) CTAs, one cluster per batch tile, with ``rec_smem``
+    bytes for the recurrent sums of its neuron tiles, the double-buffered
+    spike words and a pass's (slot, row) list. Raises ``ValueError`` on
+    a shape the kernel does not take, shared memory above ``MAX_SMEM``
+    included.
+    """
+    if (min(K, B, n_ext, P, block_batch) <= 0 or B % block_batch
+            or n_ext % BLOCK_SRC or P % _TILE_COLS):
+        raise ValueError(f"shapes must be pre-padded to block multiples: "
+                         f"K {K}, B {B}, n_ext {n_ext}, P {P}, block_batch "
+                         f"{block_batch}")
+    n_tiles, nb = P // _TILE_COLS, B // block_batch
+    cluster = min(n_tiles, _MAX_CLUSTER)
+    ext_grid = (n_tiles, n_ext // BLOCK_SRC, nb)
+    ext_smem = 4 * (BLOCK_SRC * _TILE_COLS + 4 * (K * block_batch + 1)
+                    + _EXT_WARPS * BLOCK_SRC)
+    my_tiles = -(-n_tiles // cluster)  # neuron tiles per CTA
+    rec_smem = 4 * (my_tiles * block_batch * _TILE_COLS
+                    + 2 * block_batch * (P // 32) + 32 * _PASS_WORDS
+                    + _REC_WARPS)
+    if (max(ext_grid[1:]) > _MAX_GRID_YZ or P >= 1 << 24
+            or K * B * P >= 1 << 31):
+        raise ValueError(f"the kernel takes at most {_MAX_GRID_YZ} external "
+                         f"blocks and batch tiles, P < 2^24 and K * B * P < "
+                         f"2^31, got K {K}, B {B}, n_ext {n_ext}, P {P}")
+    if max(ext_smem, rec_smem) > MAX_SMEM:
+        raise ValueError(f"the window needs {ext_smem} (external leg) and "
+                         f"{rec_smem} (recurrent leg) bytes of shared memory "
+                         f"per CTA, above the {MAX_SMEM} a CTA may have: K "
+                         f"{K}, P {P}, block_batch {block_batch}")
+    return {"ext_grid": ext_grid,
+            "ext_ctas": ext_grid[0] * ext_grid[1] * ext_grid[2],
+            "rec_grid": (cluster, nb), "rec_ctas": cluster * nb,
+            "cluster": cluster, "ext_smem": ext_smem, "rec_smem": rec_smem}
 
 
 def _check(activity, ext_packed, w_ext, w_rec, v, spikes, active, *,
@@ -115,9 +169,15 @@ def spike_timestep_fused_cuda(activity, ext_packed, w_ext, w_rec, v, spikes,
     tensors = (activity, ext_packed, w_ext, w_rec, v, spikes, active)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("spike_timestep_fused_cuda needs contiguous tensors")
+    if w_ext.data_ptr() % 16 or w_rec.data_ptr() % 16:
+        raise ValueError("spike_timestep_fused_cuda reads weight rows 16 "
+                         "bytes at a time: w_ext and w_rec must be 16-byte "
+                         "aligned")
+    launch_plan(K, B, n_ext, P, block_batch)
     decay_mode, shift = decay_codes(decay_kind, decay_rate)
     v_out = torch.empty_like(v)
     spk_out = torch.empty_like(v)
+    # the external leg's accumulators; zeroed by the entry point
     raster = torch.empty((K, B, P), dtype=torch.int32, device=v.device)
     launch = _LIB.function
     with torch.cuda.device(v.device):

@@ -3,8 +3,12 @@
 Without a CUDA card these skip; on the GPU machine run them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 ``chip_smoke.py`` runs the full sweep; these are the quick per-module
-checks: each kernel against its plain version, and the engine's kernel
-backends (single-step and K-step fused) against its reference backend.
+checks: each kernel against its plain version, the engine's kernel
+backends (single-step and K-step fused) against its reference backend,
+and the split designs of the two timestep kernels under stress: many
+source blocks, all-silent and dense sources, ragged B and P, P = 4096
+(more neuron tiles than a cluster holds), K = 16, back-to-back launches
+into reused buffers, and CUDA-graph replays.
 """
 
 import pathlib
@@ -18,6 +22,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import engine as teng  # noqa: E402
 from repro_torch.kernels import bitpack, ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import spike_timestep as ts  # noqa: E402
 from repro_torch.kernels import spike_timestep_fused as tsf  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -155,3 +160,105 @@ def test_poisson_encode_kernel_equals_plain_on_the_card(card, B, D, T, seed):
     want = kref.poisson_encode_ref(seed, torch.from_numpy(x), T)
     assert got.shape == (T, B, D)
     assert torch.equal(got.cpu(), want)
+
+
+# --------------------------------------------------------------------------
+# the split designs under stress
+# --------------------------------------------------------------------------
+
+def _graph_replay(fn):
+    """``fn()`` captured in a CUDA graph and replayed once; its outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def _check_split(fn, want):
+    """fn() == plain; a second launch after the first outputs were poisoned
+    and freed (so their memory is handed out again) gives the same bytes;
+    a CUDA-graph replay equals the eager call."""
+    first = fn()
+    torch.cuda.synchronize()
+    for g, w in zip(first, want):
+        assert torch.equal(g.cpu(), w)
+    for t in first:
+        t.fill_(-1)
+    del first
+    second = fn()
+    torch.cuda.synchronize()
+    for g, w in zip(second, want):
+        assert torch.equal(g.cpu(), w)
+    del second
+    for g, w in zip(_graph_replay(fn), want):
+        assert torch.equal(g.cpu(), w)
+
+
+SPLIT_DENSITIES = [0.0, 0.05, 1.0]  # all silent, served-like, dense
+
+
+@pytest.mark.parametrize("shape", [(8, 4200, 1024), (13, 2592, 130),
+                                   (5, 1000, 4096)])
+@pytest.mark.parametrize("density", SPLIT_DENSITIES)
+@pytest.mark.parametrize("block_batch", [1, 8])
+@pytest.mark.parametrize("use_f32", [False, True])
+def test_split_single_step_on_the_card(card, shape, density, block_batch,
+                                       use_f32):
+    B, S, P = shape
+    rng = np.random.default_rng(B + S + P + int(100 * density))
+    hi = 1 << 16 if use_f32 else 1 << 31  # f32: every block sum < 2^23
+    src = torch.from_numpy((rng.random((B, S)) < density).astype(np.int32))
+    W = torch.from_numpy(rng.integers(-hi, hi, (S, P), dtype=np.int64)
+                         .astype(np.int32))
+    v = torch.from_numpy(rng.integers(-2**31, 2**31, (B, P), dtype=np.int64)
+                         .astype(np.int32))
+    sp = ops._pad_to(ops._pad_to(src, 0, block_batch), 1, 128).contiguous()
+    wp = ops._pad_to(ops._pad_to(W, 0, 128), 1, 128).contiguous()
+    vp = ops._pad_to(ops._pad_to(v, 0, block_batch), 1, 128).contiguous()
+    act = ops.gate_activity(sp, block_batch=block_batch)
+    kw = dict(threshold_raw=1 << 16, reset_mode="subtract", decay_rate=0.125,
+              use_f32=use_f32, block_batch=block_batch)
+    want = ts.spike_timestep_plain(act, sp, wp, vp, **kw)
+    dev = [t.to(card) for t in (act, sp, wp, vp)]
+    before = ops.LAUNCHES["spike_timestep"]
+    _check_split(lambda: ts.spike_timestep_cuda(*dev, **kw), want)
+    # two eager calls, one warm-up and one captured call of the graph
+    assert ops.LAUNCHES["spike_timestep"] == before + 4
+
+
+@pytest.mark.parametrize("shape", [(8, 4200, 1024), (13, 200, 130),
+                                   (5, 300, 4096)])
+@pytest.mark.parametrize("density", SPLIT_DENSITIES)
+@pytest.mark.parametrize("block_batch", [1, 8])
+@pytest.mark.parametrize("use_f32", [False, True])
+def test_split_fused_window_on_the_card(card, shape, density, block_batch,
+                                        use_f32):
+    B, n_in, P = shape
+    K = 16
+    rng = np.random.default_rng(B + n_in + P + int(100 * density))
+    hi = 1 << 15 if use_f32 else 1 << 31
+    W = rng.integers(-hi, hi, (n_in + P, P), dtype=np.int64).astype(np.int32)
+    ext = (rng.random((K, B, n_in)) < density).astype(np.int32)
+    spk = (rng.random((B, P)) < density).astype(np.int32)
+    v = rng.integers(-2**20, 2**20, (B, P)).astype(np.int32)
+    active = (rng.random((K, B)) < 0.75).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (ext, spk, W, v, active)]
+    ext_p, spk_p, w_ext, w_rec, v_p, act_p, _, _ = ops._fused_pad(
+        *args, n_inputs=n_in, block_batch=block_batch, block_src=128)
+    packed = bitpack.pack_spikes(ext_p)
+    activity = ops.window_gate_activity(packed, block_batch=block_batch)
+    host = (activity, packed, w_ext, w_rec, v_p, spk_p, act_p)
+    kw = dict(decay_rate=0.25, threshold_raw=1 << 16, reset_mode="zero",
+              use_f32=use_f32, block_batch=block_batch)
+    want = tsf.spike_timestep_fused_plain(*host, **kw)
+    dev = [t.to(card) for t in host]
+    before = ops.LAUNCHES["spike_timestep_fused"]
+    _check_split(lambda: tsf.spike_timestep_fused_cuda(*dev, **kw), want)
+    assert ops.LAUNCHES["spike_timestep_fused"] == before + 4
