@@ -17,7 +17,9 @@ in phases that each exit non-zero on failure:
    out-of-range, edge and NaN intensities; then the split designs of both
    timestep kernels under stress (S >= 4096, all-silent and dense
    sources, ragged B and P, P = 4096, K = 16), each case also launched
-   twice into reused buffers and replayed from a CUDA graph;
+   twice into reused buffers and replayed from a CUDA graph; and the
+   port's threefry (``core/prng``) and ``AcceleratorSession.run`` for a
+   seed, on the card against the same calls on the host;
 3. serves the slice end to end: two co-resident 784-256-10 MNIST nets on
    the full 32 x 32 Cerebra-H array, 8 slots x 8-step chunks, 20 streams of
    100 steps with churn, under each gate, on the kernel backends ("cuda",
@@ -37,7 +39,10 @@ in phases that each exit non-zero on failure:
    and its bound: device time per call from CUDA-graph replays between
    CUDA events (``ms``), the time per call when issued eagerly from the
    host, and the device time of each launch of a call (memset, product,
-   epilogue; memset, external leg, recurrent leg) from ``torch.profiler``.
+   epilogue; memset, external leg, recurrent leg) from ``torch.profiler``;
+   the LIF update and the encoder also where their bytes bind (past the
+   50 MB L2), each beside the launch floor (one LIF launch on a (1, 1)
+   input) and its share of the byte bound.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -452,6 +457,60 @@ def phase_encode_vs_plain(torch, enc, ref) -> int:
         f"{len(ENCODE_SEEDS)} seeds, edge and NaN intensities; {spikes} "
         f"spikes; max |diff| {worst}")
     return worst
+
+
+PRNG_SEEDS = (0, 42, -1, (1 << 32) + 7)
+PRNG_SHAPES = ((), (7,), (3, 5, 2), (25, 8, 784))
+
+
+def phase_prng_card_vs_host(np, torch, prng, session_cls, feedforward, cfg):
+    """The port's threefry and the session's seeded run on the card against
+    the same calls on the host: the spikes of a seed must not depend on
+    the device. torch.equal on uniforms (as int32), split keys, rasters,
+    counts and predictions."""
+    n_cases = 0
+    for seed in PRNG_SEEDS:
+        host_key = prng.key(seed)
+        card_key = host_key.cuda()
+        check(torch.equal(prng.split(card_key, 3).cpu(),
+                          prng.split(host_key, 3)),
+              f"prng.split on the card != host for seed {seed}")
+        for shape in PRNG_SHAPES:
+            card = prng.uniform(card_key, shape)
+            check(card.device.type == "cuda", "uniform left the key's device")
+            host = prng.uniform(host_key, shape)
+            check(torch.equal(card.cpu().view(torch.int32),
+                              host.view(torch.int32)),
+                  f"prng.uniform on the card != host for seed {seed} "
+                  f"shape {shape}")
+            n_cases += 1
+    big = prng.uniform(prng.key(3).cuda(), ENCODE_LARGE)  # 20 M draws
+    check(torch.equal(big.cpu().view(torch.int32),
+                      prng.uniform(prng.key(3), ENCODE_LARGE)
+                      .view(torch.int32)),
+          f"prng.uniform on the card != host at {ENCODE_LARGE}")
+    nets = mnist_nets(np, feedforward, cfg)
+    x = np.random.default_rng(4).random((8, 784)).astype(np.float32)
+    spikes = 0
+    for backend in ("cuda", "reference"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            sess = session_cls(cfg.ACCELERATOR, backend=backend,
+                               device=device)
+            for name, net in nets.items():
+                sess.deploy(name, net)
+            runs[device] = sess.run("mnist1", x, 25, seed=7)
+        torch.cuda.synchronize()
+        for k in ("spikes", "output_counts", "predictions"):
+            check(torch.equal(runs["cuda"][k].cpu(), runs["cpu"][k]),
+                  f"session.run({backend}) on the card != host: {k}")
+        spikes += int(runs["cuda"]["spikes"].sum())
+        n_cases += 1
+    check(spikes > 0, "session.run emitted no spikes")
+    log(f"prng and session.run: card == host (torch.equal) in all {n_cases} "
+        f"cases: seeds {PRNG_SEEDS} x uniform shapes {PRNG_SHAPES}, split "
+        f"keys, uniform at {ENCODE_LARGE}; session.run of mnist1 (B 8, T 25, seed 7) on the "
+        f"cuda and reference backends, {spikes} spikes")
 
 
 # --------------------------------------------------------------------------
@@ -992,9 +1051,11 @@ def phase_times_fused(np, torch, tsf, ops, bitpack, session_cls,
     return variants
 
 
-def time_elementwise(torch, name, kernel, plain, wrapper, nbytes, ops_n):
+def time_elementwise(torch, name, kernel, plain, wrapper, nbytes, ops_n,
+                     floor_ms):
     """Device time (CUDA-graph replay) of an elementwise kernel, its plain
-    version and its ops wrapper, eager times, and its bound."""
+    version and its ops wrapper, eager times, and its bound, beside the
+    launch floor."""
     k_ms, p_ms, w_ms = (graph_time_ms(torch, f)
                         for f in (kernel, plain, wrapper))
     k_eager, p_eager, w_eager = (cuda_time_ms(torch, f, iters=100)
@@ -1008,42 +1069,81 @@ def time_elementwise(torch, name, kernel, plain, wrapper, nbytes, ops_n):
     o_ms = ops_n / FP32_OPS_PER_S * 1e3
     bound = max(b_ms, o_ms)
     log(f"{name}: device time per call (CUDA graph) kernel "
-        f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, whole ops wrapper "
+        f"{k_ms * 1e3:.2f} us (launch floor {floor_ms * 1e3:.2f} us), plain "
+        f"{p_ms * 1e3:.2f} us, whole ops wrapper "
         f"{w_ms * 1e3:.2f} us; issued eagerly kernel {k_eager * 1e3:.2f} us, "
         f"plain {p_eager * 1e3:.2f} us, ops wrapper {w_eager * 1e3:.2f} us; "
-        f"bound {bound * 1e3:.3f} us ({nbytes / 1e3:.1f} KB at 3.35 TB/s, "
+        f"bound {bound * 1e3:.3f} us ({nbytes / 1e6:.3f} MB at 3.35 TB/s, "
         f"{ops_n} int ops) -> {100 * bound / k_ms:.1f}% of bound")
     return {"ms": k_ms, "plain_ms": p_ms, "ops_ms": w_ms, "eager_ms": k_eager,
             "eager_plain_ms": p_eager, "eager_ops_ms": w_eager,
             "bound_ms": bound,
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "share_of_bound": bound / k_ms, "launch_floor_ms": floor_ms,
             "max_abs_err": err}
 
 
-def phase_times_elementwise(np, torch, lif, enc, ref, ops):
-    """The LIF update and the encoder at the kernel bench's shapes and
-    inputs: B 8 x P 1024, and T 25 x B 8 x D 784."""
-    rng = np.random.default_rng(0)
-    B, P, D, T = 8, 1024, 784, 25
-    v, syn = (torch.from_numpy(rng.integers(lo, -lo, (B, P)).astype(
-        np.int32)).cuda() for lo in (-2**20, -2**16))
-    kw = dict(decay_rate=0.25, threshold_raw=1 << 16, reset_mode="zero")
+LIF_KW = dict(decay_rate=0.25, threshold_raw=1 << 16, reset_mode="zero")
+
+
+def time_lif(torch, lif, ref, ops, v, syn, floor_ms, what):
+    n = v.numel()
     # v and syn read once, v_out and spikes written once; decay (shift,
     # subtract), add, compare, reset: 5 integer operations per element
-    lif_t = time_elementwise(
-        torch, "lif_step", lambda: lif.lif_step_cuda(v, syn, **kw),
-        lambda: ref.lif_step_ref(v, syn, **kw),
-        lambda: ops.lif_step(v, syn, **kw), 4 * 4 * B * P, 5 * B * P)
-    x = torch.from_numpy(rng.random((B, D)).astype(np.float32)).cuda()
+    return time_elementwise(
+        torch, f"lif_step {what} {tuple(v.shape)}",
+        lambda: lif.lif_step_cuda(v, syn, **LIF_KW),
+        lambda: ref.lif_step_ref(v, syn, **LIF_KW),
+        lambda: ops.lif_step(v, syn, **LIF_KW), 4 * 4 * n, 5 * n, floor_ms)
+
+
+def time_encode(torch, enc, ref, ops, x, T, floor_ms, what):
+    B, D = x.shape
     # intensities read once, the raster written once; per element the
     # hash (3 multiplies and 3 xors of the counters, 3 shifts, 3 xors and
     # 2 multiplies of the finaliser) and the compare and or, per (b, d)
     # the clip, scale, minimum and conversion
-    enc_t = time_elementwise(
-        torch, "poisson_encode", lambda: enc.poisson_encode_cuda(0, x, T),
+    return time_elementwise(
+        torch, f"poisson_encode {what} T {T} x B {B} x D {D}",
+        lambda: enc.poisson_encode_cuda(0, x, T),
         lambda: ref.poisson_encode_ref(0, x, T),
         lambda: ops.poisson_encode(0, x, T),
-        4 * B * D + 4 * T * B * D, 16 * T * B * D + 5 * B * D)
+        4 * B * D + 4 * T * B * D, 16 * T * B * D + 5 * B * D, floor_ms)
+
+
+# where bytes bind: (B, P) of the LIF update and (T, B, D) of the encoder,
+# each far past the 50 MB L2 (268.4 MB and 81.1 MB)
+LIF_LARGE = (1024, 16384)
+ENCODE_LARGE = (100, 256, 784)
+
+
+def phase_times_elementwise(np, torch, lif, enc, ref, ops):
+    """The LIF update and the encoder at the kernel bench's shapes and
+    inputs (B 8 x P 1024, and T 25 x B 8 x D 784) and where their bytes
+    bind, beside the launch floor: the same LIF launch path on a (1, 1)
+    input."""
+    one = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    floor_ms = graph_time_ms(torch, lambda: lif.lif_step_cuda(one, one,
+                                                              **LIF_KW))
+    log(f"launch floor: lif_step_cuda on a (1, 1) input, "
+        f"{floor_ms * 1e3:.2f} us per call (CUDA graph)")
+    rng = np.random.default_rng(0)
+    B, P, D, T = 8, 1024, 784, 25
+    v, syn = (torch.from_numpy(rng.integers(lo, -lo, (B, P)).astype(
+        np.int32)).cuda() for lo in (-2**20, -2**16))
+    lif_t = time_lif(torch, lif, ref, ops, v, syn, floor_ms, "bench")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    v, syn = (torch.randint(lo, -lo, LIF_LARGE, generator=gen, device="cuda",
+                            dtype=torch.int32) for lo in (-2**20, -2**16))
+    lif_t["large"] = time_lif(torch, lif, ref, ops, v, syn, floor_ms,
+                              "large")
+    del v, syn
+    x = torch.from_numpy(rng.random((B, D)).astype(np.float32)).cuda()
+    enc_t = time_encode(torch, enc, ref, ops, x, T, floor_ms, "bench")
+    T_l, B_l, D_l = ENCODE_LARGE
+    x = torch.rand((B_l, D_l), generator=gen, device="cuda")
+    enc_t["large"] = time_encode(torch, enc, ref, ops, x, T_l, floor_ms,
+                                 "large")
     log("library_ms (lif_step, poisson_encode): no single PyTorch call "
         "computes the LIF update or the counter-hash encoder (torch.rand is "
         "another generator); none is timed")
@@ -1067,6 +1167,7 @@ def main() -> None:
     import numpy as np
 
     from repro_torch.configs import snap_v_snn as cfg
+    from repro_torch.core import prng
     from repro_torch.core.network import feedforward
     from repro_torch.core.session import AcceleratorSession
     from repro_torch.kernels import bitpack
@@ -1095,6 +1196,8 @@ def main() -> None:
     worst_stress = phase_split_stress(torch, ts, tsf, ops, bitpack)
     worst_lif = phase_lif_vs_plain(torch, lif, ref)
     worst_enc = phase_encode_vs_plain(torch, enc, ref)
+    phase_prng_card_vs_host(np, torch, prng, AcceleratorSession, feedforward,
+                            cfg)
 
     log("phase 3: the serving slice end to end, unfused and fused")
     launches, served_steps, fused_launches, rates = phase_serve(

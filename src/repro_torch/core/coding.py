@@ -1,14 +1,16 @@
 """Spike encoding / decoding — the SoC's Coding Hardware Unit.
 
-Twin of :mod:`repro.core.coding`. The Poisson encoder draws from an
-explicit ``torch.Generator`` instead of JAX's threefry, so its bits differ
-from the JAX package's for the same seed; parity tests feed both packages
-the same numpy rasters instead.
+Twin of :mod:`repro.core.coding`. The Poisson encoder draws its uniforms
+from :mod:`repro_torch.core.prng`, the port's bit-exact copy of JAX's
+threefry, so a key gives the JAX package's spikes, on the CPU and on the
+card alike.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import prng
 
 __all__ = [
     "analog_decode",
@@ -19,17 +21,18 @@ __all__ = [
 ]
 
 
-def poisson_encode(generator: torch.Generator, intensities, num_steps: int,
+def poisson_encode(key, intensities, num_steps: int,
                    dtype=torch.float32) -> torch.Tensor:
     """Poisson (Bernoulli per step) rate coding.
 
-    intensities: (..., D) floats in [0, 1], on the generator's device.
-    Returns (T, ..., D) spikes in {0, 1} of ``dtype``.
+    key: a :mod:`~repro_torch.core.prng` key (an int seed is taken as
+    ``prng.key(seed)``). intensities: (..., D) floats in [0, 1], clipped,
+    in float32; the spikes are computed on their device. Returns
+    (T, ..., D) spikes in {0, 1} of ``dtype``; a NaN intensity never fires.
     """
-    x = torch.clamp(torch.as_tensor(intensities, dtype=torch.float32,
-                                    device=generator.device), 0.0, 1.0)
-    u = torch.rand((num_steps,) + tuple(x.shape), generator=generator,
-                   device=generator.device)
+    x = torch.clamp(torch.as_tensor(intensities).to(torch.float32), 0.0, 1.0)
+    u = prng.uniform(prng.as_key(key), (num_steps,) + tuple(x.shape),
+                     device=x.device)
     return (u < x[None]).to(dtype)
 
 

@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import cerebra_h, coding
+from repro_torch.core import cerebra_h, coding, prng
 from repro_torch.core.engine import DecaySpec, SpikeEngine
 from repro_torch.core.mapping import ClusterGeometry, Placement
 from repro_torch.core.network import SNNetwork
@@ -111,19 +111,21 @@ class AcceleratorSession:
         return model
 
     # ------------------------------------------------------------------
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+    def _encode(self, key, intensities, num_steps: int) -> torch.Tensor:
+        x = torch.as_tensor(intensities, device=self.device)
+        return coding.poisson_encode(key, x, num_steps, dtype=torch.int32)
 
-    def run(self, name: str, intensities, num_steps: int, seed: int) -> dict:
+    def run(self, name: str, intensities, num_steps: int, seed) -> dict:
         """Encode -> infer -> decode for one resident model.
 
-        intensities: (B, n_inputs) in [0, 1]; ``seed`` seeds the Poisson
-        encoder (the same seed gives the same spikes). Returns
-        :func:`cerebra_h.run`'s result plus ``'predictions'``.
+        intensities: (B, n_inputs) in [0, 1]. ``seed`` is an int, taken as
+        ``prng.key(seed)``, or a :mod:`~repro_torch.core.prng` key; the
+        spikes are the JAX package's for ``jax.random.key(seed)`` on any
+        device. Returns :func:`cerebra_h.run`'s result plus
+        ``'predictions'``.
         """
         model = self.models[name]
-        spikes = coding.poisson_encode(self._generator(seed), intensities,
-                                       num_steps, dtype=torch.int32)
+        spikes = self._encode(prng.as_key(seed), intensities, num_steps)
         result = cerebra_h.run(model.program, spikes, backend=self.backend,
                                device=self.device)
         result["predictions"] = torch.argmax(result["output_counts"], dim=-1)
@@ -164,18 +166,17 @@ class AcceleratorSession:
         self._fused_engines[key] = engine
         return engine
 
-    def run_all(self, inputs: dict, num_steps: int, seed: int) -> dict:
+    def run_all(self, inputs: dict, num_steps: int, seed) -> dict:
         """Advance every resident model in one fused engine pass per LIF
-        configuration. Each model is encoded with the generator seed
-        :meth:`run` would use, and its decoded outputs (and cost-model
-        counts) are bit-identical to a solo deployment."""
+        configuration. ``seed`` is as in :meth:`run`; each model is encoded
+        with the key :meth:`run` would use, and its decoded outputs (and
+        cost-model counts) are bit-identical to a solo deployment."""
         members = [self.models[name] for name in inputs]
         batches = {np.shape(inputs[m.name])[0] for m in members}
         if len(batches) > 1:
             raise ValueError(f"batch sizes differ across models: {batches}")
-        ext = {m.name: coding.poisson_encode(
-                   self._generator(seed), inputs[m.name], num_steps,
-                   dtype=torch.int32)
+        key = prng.as_key(seed)
+        ext = {m.name: self._encode(key, inputs[m.name], num_steps)
                for m in members}
         groups: dict = {}
         for m in members:

@@ -4,10 +4,11 @@ Twin of :mod:`repro.kernels.poisson_encode` (the Pallas
 ``poisson_encode_kernel``). The kernel is CUDA C++ for ``sm_90a``
 (``csrc/poisson_encode.cu``), built with ``nvcc`` at first use and loaded
 with ``ctypes`` (:mod:`repro_torch.kernels._build`). Its plain version is
-the oracle :func:`repro_torch.kernels.ref.poisson_encode_ref`. Unlike the
-session's ``torch.Generator`` encoder (:mod:`repro_torch.core.coding`),
-the spikes are a pure function of (seed, t, b, d): kernel, plain version
-and the JAX kernel agree bit for bit.
+the oracle :func:`repro_torch.kernels.ref.poisson_encode_ref`. The spikes
+are a pure function of (seed, t, b, d), a counter hash of its own (the
+session's encoder, :mod:`repro_torch.core.coding`, draws threefry
+uniforms instead): kernel, plain version and the JAX kernel agree bit for
+bit.
 
 :func:`poisson_encode` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; there is no fallback from one to the

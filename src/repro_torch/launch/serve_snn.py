@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import coding
+from repro_torch.core import coding, prng
 from repro_torch.core.engine import BACKENDS, GATES
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.network import SNNetwork
@@ -80,13 +80,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _request_plan(args, names, rng) -> list:
     """Stream i -> (uid, model, Poisson-encoded (T, n_inputs) stimulus),
-    drawn on the host from a generator seeded with ``--seed``."""
-    gen = torch.Generator().manual_seed(args.seed)
+    encoded on the host with the i-th key split off ``prng.key(--seed)``,
+    as the JAX launcher splits ``jax.random.key(--seed)``: the same seed
+    gives the JAX launcher's stimuli."""
+    key = prng.key(args.seed)
     requests = []
     for uid in range(args.streams):
+        key, k = prng.split(key)
         intensity = (args.intensity
                      * rng.random((1, args.n_inputs)).astype(np.float32))
-        spikes = coding.poisson_encode(gen, intensity, args.steps_per_stream,
+        spikes = coding.poisson_encode(k, intensity, args.steps_per_stream,
                                        dtype=torch.int32)[:, 0].numpy()
         requests.append((uid, names[uid % len(names)], spikes))
     return requests

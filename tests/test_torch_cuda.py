@@ -8,7 +8,8 @@ backends (single-step and K-step fused) against its reference backend,
 and the split designs of the two timestep kernels under stress: many
 source blocks, all-silent and dense sources, ragged B and P, P = 4096
 (more neuron tiles than a cluster holds), K = 16, back-to-back launches
-into reused buffers, and CUDA-graph replays.
+into reused buffers, and CUDA-graph replays; and the port's threefry and
+a seeded ``AcceleratorSession.run`` on the card against the host.
 """
 
 import pathlib
@@ -20,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import engine as teng  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.kernels import bitpack, ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import spike_timestep as ts  # noqa: E402
@@ -160,6 +162,38 @@ def test_poisson_encode_kernel_equals_plain_on_the_card(card, B, D, T, seed):
     want = kref.poisson_encode_ref(seed, torch.from_numpy(x), T)
     assert got.shape == (T, B, D)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(), (7,), (3, 5, 2), (25, 8, 784)])
+@pytest.mark.parametrize("seed", [0, -1, 2**32 + 7])
+def test_prng_on_the_card_equals_the_host(card, shape, seed):
+    host = prng.uniform(prng.key(seed), shape)
+    got = prng.uniform(prng.key(seed).to(card), shape)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu().view(torch.int32), host.view(torch.int32))
+    assert torch.equal(prng.split(prng.key(seed).to(card), 3).cpu(),
+                       prng.split(prng.key(seed), 3))
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_session_run_on_the_card_equals_the_host(card, backend):
+    from repro_torch.core.lif import LIFParams
+    from repro_torch.core.network import feedforward
+    from repro_torch.core.session import AcceleratorSession
+
+    rng = np.random.default_rng(8)
+    ws = [rng.normal(0.0, 0.6 / np.sqrt(a), (a, b)).astype(np.float32)
+          for a, b in ((30, 50), (50, 10))]
+    net = feedforward(ws, LIFParams(decay_rate=0.25))
+    x = rng.uniform(-0.1, 1.1, (4, 30)).astype(np.float32)
+    runs = {}
+    for device in (card, "cpu"):
+        sess = AcceleratorSession(backend=backend, device=device)
+        sess.deploy("m", net)
+        runs[str(device)] = sess.run("m", x, 20, seed=-5)
+    for k in ("spikes", "output_counts", "predictions"):
+        assert torch.equal(runs["cuda"][k].cpu(), runs["cpu"][k]), k
+    assert int(runs["cpu"]["spikes"].sum()) > 0
 
 
 # --------------------------------------------------------------------------

@@ -3,7 +3,8 @@ streaming server against the JAX package's, on identical numpy state.
 
 Networks are built once from seeded numpy weights and carried into the
 port with :mod:`repro_torch.convert`; both packages are fed the same numpy
-chunks (the port's Poisson encoder draws other bits than threefry).
+chunks, or the same seed, which the port's threefry
+(:mod:`repro_torch.core.prng`) turns into the JAX package's spikes.
 """
 
 import subprocess
@@ -14,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import snap_v_snn as jcfg  # noqa: E402
@@ -26,6 +28,7 @@ from repro.core.session import AcceleratorSession as JSession  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import snap_v_snn as tcfg  # noqa: E402
 from repro_torch.core import cerebra_h as tch  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.engine import BACKEND_TABLE  # noqa: E402
 from repro_torch.core.session import AcceleratorSession as TSession  # noqa: E402
 from repro_torch.launch import serve_snn as tserve  # noqa: E402
@@ -368,7 +371,91 @@ def test_coding_latency_encode_and_decoders_match_jax():
     assert np.allclose(np.asarray(jcoding.analog_decode(jl, -1.0, 2.0)),
                        tcoding.analog_decode(torch.from_numpy(tl), -1.0, 2.0)
                        .numpy(), rtol=0, atol=1e-6)
-    gen = torch.Generator().manual_seed(0)
-    spikes = tcoding.poisson_encode(gen, np.full((2, 5000), 0.3), 4)
+    x = np.full((2, 5000), 0.3)
+    spikes = tcoding.poisson_encode(prng.key(0), x, 4)
     assert spikes.shape == (4, 2, 5000)
     assert abs(float(spikes.mean()) - 0.3) < 0.01
+    want = jcoding.poisson_encode(jax.random.key(0), x, 4)
+    assert np.array_equal(spikes.numpy(), np.asarray(want))
+
+
+# --------------------------------------------------------------------------
+# a seed gives the JAX package's spikes: session.run / run_all, serve_snn
+# --------------------------------------------------------------------------
+
+def _inputs(rng, n_inputs, B=3):
+    x = rng.uniform(-0.1, 1.1, (B, n_inputs)).astype(np.float32)
+    x[0, :3] = [0.0, 1.0, np.nan]
+    return x
+
+
+def _assert_result_equal(jr, tr):
+    for k in ("spikes", "output_counts", "predictions"):
+        assert np.array_equal(np.asarray(jr[k]), tr[k].numpy()), k
+    for k in ("cycles", "sops", "row_fetches"):
+        assert np.array_equal(np.asarray(jr[k]), np.asarray(tr[k])), k
+
+
+@pytest.mark.parametrize("backend,seed", [
+    ("reference", 0), ("reference", 42), ("reference", -1),
+    ("reference", 2**32), ("cuda", 7), ("cuda-f32", 2**31)])
+def test_session_run_with_a_seed_matches_jax(backend, seed):
+    nets = _two_models()
+    js, ts = _sessions(nets, SMALL, backend)
+    x = _inputs(np.random.default_rng(20), 30)
+    jr = js.run("A", x, 12, jax.random.key(seed))
+    tr = ts.run("A", x, 12, seed=seed)
+    _assert_result_equal(jr, tr)
+    assert int(tr["spikes"].sum()) > 0
+    # a port key is taken as is: a split key gives JAX's split key's run
+    jr = js.run("B", x[:, :20], 12, jax.random.split(jax.random.key(seed))[1])
+    tr = ts.run("B", x[:, :20], 12, seed=prng.split(prng.key(seed))[1])
+    _assert_result_equal(jr, tr)
+
+
+@pytest.mark.parametrize("seed", [5, -2**31 - 1])
+def test_session_run_all_with_a_seed_matches_jax(seed):
+    nets = _two_models()
+    js, ts = _sessions(nets, SMALL, "reference")
+    rng = np.random.default_rng(21)
+    xs = {"A": _inputs(rng, 30), "B": _inputs(rng, 20)}
+    jr = js.run_all(xs, 10, jax.random.key(seed))
+    tr = ts.run_all(xs, 10, seed=seed)
+    assert set(tr) == {"A", "B"}
+    for name in xs:
+        _assert_result_equal(jr[name], tr[name])
+
+
+def _jax_request_plan(args, names, rng):
+    """The JAX launcher's request plan, as ``repro.launch.serve_snn``
+    builds it: one ``jax.random.split`` of the running key per stream."""
+    from repro.core import coding as jcoding
+
+    key = jax.random.key(args.seed)
+    requests = []
+    for uid in range(args.streams):
+        key, k = jax.random.split(key)
+        name = names[uid % len(names)]
+        intensity = (args.intensity
+                     * rng.random((1, args.n_inputs)).astype(np.float32))
+        spikes = np.asarray(jcoding.poisson_encode(
+            k, intensity, args.steps_per_stream, dtype=np.int32))[:, 0]
+        requests.append((uid, name, spikes))
+    return requests
+
+
+@pytest.mark.parametrize("seed", [0, 3, 2**32 + 5])
+def test_serve_snn_request_plan_matches_jax(seed):
+    args = tserve.build_parser().parse_args([
+        "--seed", str(seed), "--streams", "7", "--n-inputs", "40",
+        "--steps-per-stream", "16", "--intensity", "0.6"])
+    names = ["snn0", "snn1", "snn2"]
+    want = _jax_request_plan(args, names, np.random.default_rng(seed))
+    got = tserve._request_plan(args, names, np.random.default_rng(seed))
+    assert len(got) == len(want) == 7
+    for (ju, jn, js_), (tu, tn, ts_) in zip(want, got):
+        assert (tu, tn) == (ju, jn)
+        assert ts_.dtype == js_.dtype == np.int32
+        assert ts_.shape == (16, 40)
+        assert np.array_equal(ts_, js_)
+    assert sum(int(s.sum()) for _, _, s in got) > 0
