@@ -14,7 +14,9 @@ in phases that each exit non-zero on failure:
    a ragged one and the no-external-input edge), with masked slots, the
    LIF update over shapes x decay rates x resets x thresholds on
    full-range int32, and the rate encoder over shapes x seeds with
-   out-of-range, edge and NaN intensities; then the split designs of both
+   out-of-range, edge and NaN intensities (each case also relaunched,
+   replayed from a CUDA graph and fed an unaligned input, the scalar
+   path); then the split designs of both
    timestep kernels under stress (S >= 4096, all-silent and dense
    sources, ragged B and P, P = 4096, K = 16), each case also launched
    twice into reused buffers and replayed from a CUDA graph; and the
@@ -415,8 +417,11 @@ def phase_lif_vs_plain(torch, lif, ref) -> int:
     return worst
 
 
+# (B, D, T): the sweep's shapes, planes with B*D % 4 != 0 (the scalar
+# path), T 1 and T 100, and the large shape where bytes bind
 ENCODE_SHAPES = ((1, 1, 1), (4, 30, 16), (8, 128, 25), (9, 784, 5),
-                 (8, 784, 25))  # (B, D, T)
+                 (8, 784, 25), (3, 30, 7), (5, 7, 1), (2, 2, 100),
+                 (256, 784, 100))
 ENCODE_SEEDS = (0, 42, -1, (1 << 31) - 1)
 
 
@@ -436,25 +441,30 @@ def encode_intensities(torch, gen, B, D):
 
 def phase_encode_vs_plain(torch, enc, ref) -> int:
     """Encoder kernel vs its plain version (``ref.poisson_encode_ref``) on
-    the card, torch.equal on the (T, B, D) raster."""
+    the card, torch.equal on the (T, B, D) raster, each case through
+    :func:`check_relaunch`; every input also 4 bytes off 16-byte alignment,
+    which takes the kernel's scalar path."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     n_cases, worst, spikes = 0, 0, 0
     for B, D, T in ENCODE_SHAPES:
         x = encode_intensities(torch, gen, B, D)
+        shifted = torch.empty(B * D + 1, device="cuda")[1:].view(B, D)
+        shifted.copy_(x)
         for seed in ENCODE_SEEDS:
-            got = enc.poisson_encode_cuda(seed, x, T)
-            torch.cuda.synchronize()
-            want = ref.poisson_encode_ref(seed, x, T)
-            err = max_abs_diff(torch, (got,), (want,))
-            worst = max(worst, err)
-            check(got.shape == (T, B, D) and torch.equal(got, want),
-                  f"poisson_encode kernel != plain at B,D,T={B},{D},{T} "
-                  f"seed={seed}: max |diff| {err}")
-            spikes += int(got.sum())
-            n_cases += 1
-    log(f"poisson_encode kernel == plain (torch.equal on the raster) in all "
-        f"{n_cases} cases: {len(ENCODE_SHAPES)} shapes x "
-        f"{len(ENCODE_SEEDS)} seeds, edge and NaN intensities; {spikes} "
+            for inp, where in ((x, "aligned"), (shifted, "unaligned")):
+                want = ref.poisson_encode_ref(seed, inp, T)
+                check(want.shape == (T, B, D), "plain encoder shape")
+                worst = max(worst, check_relaunch(
+                    torch, lambda: (enc.poisson_encode_cuda(  # noqa: B023
+                        seed, inp, T),), (want,),
+                    f"poisson_encode B,D,T={B},{D},{T} seed={seed} {where}"))
+                spikes += int(want.sum())
+                n_cases += 1
+    log(f"poisson_encode kernel == plain (torch.equal on the raster), a "
+        f"second launch into reused buffers byte-identical, CUDA-graph "
+        f"replay == eager, in all {n_cases} cases: {len(ENCODE_SHAPES)} "
+        f"shapes (B, D, T) {ENCODE_SHAPES} x {len(ENCODE_SEEDS)} seeds x "
+        f"aligned / unaligned input, edge and NaN intensities; {spikes} "
         f"spikes; max |diff| {worst}")
     return worst
 

@@ -25,14 +25,13 @@ def poisson_encode(key, intensities, num_steps: int,
                    dtype=torch.float32) -> torch.Tensor:
     """Poisson (Bernoulli per step) rate coding.
 
-    key: a :mod:`~repro_torch.core.prng` key (an int seed is taken as
-    ``prng.key(seed)``). intensities: (..., D) floats in [0, 1], clipped,
-    in float32; the spikes are computed on their device. Returns
-    (T, ..., D) spikes in {0, 1} of ``dtype``; a NaN intensity never fires.
+    key: a :mod:`~repro_torch.core.prng` key. intensities: (..., D) floats
+    in [0, 1], clipped, in float32; the spikes are computed on their
+    device. Returns (T, ..., D) spikes in {0, 1} of ``dtype``; a NaN
+    intensity never fires.
     """
     x = torch.clamp(torch.as_tensor(intensities).to(torch.float32), 0.0, 1.0)
-    u = prng.uniform(prng.as_key(key), (num_steps,) + tuple(x.shape),
-                     device=x.device)
+    u = prng.uniform(key, (num_steps,) + tuple(x.shape), device=x.device)
     return (u < x[None]).to(dtype)
 
 

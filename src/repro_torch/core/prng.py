@@ -24,8 +24,7 @@ import math
 
 import torch
 
-__all__ = ["as_key", "key", "random_bits", "split", "threefry2x32",
-           "uniform"]
+__all__ = ["as_key", "key", "split", "threefry2x32", "uniform"]
 
 _U32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -38,18 +37,22 @@ def key(seed: int) -> torch.Tensor:
     return torch.tensor([0, int(seed) & _U32], dtype=torch.int64)
 
 
+def _check_key(k) -> torch.Tensor:
+    if not (isinstance(k, torch.Tensor) and k.shape == (2,)):
+        raise ValueError(f"a key is a (2,) tensor of uint32 words, got "
+                         f"{getattr(k, 'shape', type(k).__name__)}")
+    return k
+
+
 def as_key(seed_or_key) -> torch.Tensor:
     """An int seed becomes :func:`key`; a (2,) key passes through."""
     if isinstance(seed_or_key, torch.Tensor) and seed_or_key.ndim == 1:
-        if seed_or_key.shape != (2,):
-            raise ValueError(f"a key is a (2,) tensor of uint32 words, got "
-                             f"{tuple(seed_or_key.shape)}")
-        return seed_or_key
+        return _check_key(seed_or_key)
     return key(int(seed_or_key))
 
 
 def _words(k: torch.Tensor) -> tuple[int, int]:
-    k1, k2 = as_key(k).tolist()
+    k1, k2 = _check_key(k).tolist()
     return int(k1) & _U32, int(k2) & _U32
 
 
@@ -81,28 +84,18 @@ def _hash_iota(k: torch.Tensor, shape: tuple, device):
     return threefry2x32(*_words(k), i >> 32, i & _U32)
 
 
-def _device(k, device):
-    if device is not None:
-        return torch.device(device)
-    return k.device if isinstance(k, torch.Tensor) else torch.device("cpu")
-
-
-def split(k, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(k, num)``: a (num, 2) tensor of keys."""
-    bits1, bits2 = _hash_iota(k, (int(num),), _device(k, None))
+def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(k, num)``: a (num, 2) tensor of keys on the
+    key's device."""
+    bits1, bits2 = _hash_iota(k, (int(num),), _check_key(k).device)
     return torch.stack([bits1, bits2], dim=-1)
 
 
-def random_bits(k, shape=(), device=None) -> torch.Tensor:
-    """32 random bits per element (uint32 held in int64), as
-    ``jax.random.bits(k, shape, uint32)``."""
-    bits1, bits2 = _hash_iota(k, tuple(shape), _device(k, device))
-    return bits1 ^ bits2
-
-
-def uniform(k, shape=(), device=None) -> torch.Tensor:
+def uniform(k: torch.Tensor, shape=(), device=None) -> torch.Tensor:
     """``jax.random.uniform(k, shape)``: float32 on [0, 1), on ``device``
     (default: the key's)."""
-    bits = random_bits(k, shape, device)
-    one_to_two = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    device = _check_key(k).device if device is None else device
+    bits1, bits2 = _hash_iota(k, tuple(shape), device)
+    # 32 random bits, as jax.random.bits; their top 23 as the mantissa
+    one_to_two = (((bits1 ^ bits2) >> 9) | 0x3F800000).to(torch.int32)
     return one_to_two.view(torch.float32) - 1.0

@@ -18,25 +18,61 @@ other. ``LAUNCHES["poisson_encode"]`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels._build import CSRC, LAUNCHES, CudaLibrary
 from repro_torch.kernels.ref import poisson_encode_ref
 
-__all__ = ["LAUNCHES", "SOURCE", "build", "poisson_encode",
+__all__ = ["LAUNCHES", "SOURCE", "build", "launch_plan", "poisson_encode",
            "poisson_encode_cuda"]
 
 SOURCE = CSRC / "poisson_encode.cu"
 _LIB = CudaLibrary(SOURCE, "poisson_encode_launch",
                    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_uint, ctypes.c_void_p])
+                   + [ctypes.c_uint] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+
+THREADS = 256          # kThreads of csrc/poisson_encode.cu
+PER_THREAD = 4         # positions of the (B*D) plane a thread owns
+SM_THREADS = 2048      # resident threads of one Hopper SM
+WAVES = 2              # the grid's target, in waves of resident threads
+MAX_GRID_Y = 65535
 
 
 def build():
     """Compile ``csrc/poisson_encode.cu`` unless a build of this exact
     source exists. Returns ``(library path, compiler output)``."""
     return _LIB.build()
+
+
+def launch_plan(num_steps: int, batch: int, dim: int, n_sm: int) -> dict:
+    """The kernel's grid for a (T, B, D) raster on a card of ``n_sm`` SMs.
+
+    Block (x, y) takes 1024 positions of the (B*D) plane, 4 a thread, and
+    ``t_per_block`` timesteps; t is split over ``grid[1]`` until the grid
+    holds ``WAVES`` waves of resident threads (or one timestep a block).
+    ``vector``: whether the plane takes 16-byte loads and stores.
+    """
+    T, BD = int(num_steps), int(batch) * int(dim)
+    if T <= 0 or BD <= 0:
+        raise ValueError(f"nothing to launch for T={T}, B*D={BD}")
+    if BD >= 1 << 31:
+        raise ValueError(f"B*D = {BD} must be < 2^31 (the kernel indexes "
+                         f"the plane with int32)")
+    quads = -(-BD // PER_THREAD)
+    grid_x = -(-quads // THREADS)
+    want = -(-WAVES * int(n_sm) * SM_THREADS // (grid_x * THREADS))
+    t_per_block = -(-T // max(1, min(T, want, MAX_GRID_Y)))
+    grid_y = -(-T // t_per_block)
+    return {"grid": (grid_x, grid_y), "threads": THREADS,
+            "t_per_block": t_per_block, "vector": BD % PER_THREAD == 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(seed, intensities, num_steps):
@@ -62,14 +98,17 @@ def poisson_encode_cuda(seed: int, intensities: torch.Tensor,
     x = intensities.to(torch.float32).contiguous()
     B, D = x.shape
     T = int(num_steps)
+    if T * B * D == 0:  # no work, nothing to launch
+        return torch.empty((T, B, D), dtype=torch.int32, device=x.device)
+    plan = launch_plan(T, B, D, _sm_count(x.device))
+    (grid_x, grid_y), t_per_block = plan["grid"], plan["t_per_block"]
     out = torch.empty((T, B, D), dtype=torch.int32, device=x.device)
-    if out.numel() == 0:  # no work, nothing to launch
-        return out
     launch = _LIB.function
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(x.data_ptr(), out.data_ptr(), T, B, D,
-                     int(seed) & 0xFFFFFFFF, stream)
+        err = launch(x.data_ptr(), out.data_ptr(), T, B * D, D,
+                     int(seed) & 0xFFFFFFFF, grid_x, grid_y, t_per_block,
+                     stream)
     if err != 0:
         raise RuntimeError(f"poisson_encode kernel launch failed with CUDA "
                            f"error {err}")

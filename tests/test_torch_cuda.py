@@ -148,7 +148,8 @@ def test_lif_step_kernel_equals_plain_on_the_card(card, shape, rate, reset):
 
 
 @pytest.mark.parametrize("B,D,T", [(1, 1, 1), (4, 30, 16), (9, 784, 5),
-                                   (8, 784, 25)])
+                                   (8, 784, 25), (3, 30, 7), (5, 7, 1),
+                                   (2, 2, 100), (256, 784, 100)])
 @pytest.mark.parametrize("seed", [0, -1, 2**31 - 1])
 def test_poisson_encode_kernel_equals_plain_on_the_card(card, B, D, T, seed):
     rng = np.random.default_rng(B + D + T)
@@ -194,6 +195,30 @@ def test_session_run_on_the_card_equals_the_host(card, backend):
     for k in ("spikes", "output_counts", "predictions"):
         assert torch.equal(runs["cuda"][k].cpu(), runs["cpu"][k]), k
     assert int(runs["cpu"]["spikes"].sum()) > 0
+
+
+@pytest.mark.parametrize("B,D,T", [(3, 30, 7), (8, 784, 25),
+                                   (256, 784, 100)])
+def test_poisson_encode_relaunch_replay_and_unaligned_on_the_card(card, B, D,
+                                                                  T):
+    """Two launches into a poisoned, reused buffer; a CUDA-graph replay;
+    an input 4 bytes off 16-byte alignment (the scalar path)."""
+    rng = np.random.default_rng(B * D + T)
+    x = torch.from_numpy(rng.uniform(-0.25, 1.25, (B, D)).astype(np.float32))
+    want = kref.poisson_encode_ref(9, x, T)
+    first = ops.poisson_encode(9, x.to(card), T)
+    torch.cuda.synchronize()
+    assert torch.equal(first.cpu(), want)
+    first.fill_(-1)
+    del first
+    assert torch.equal(ops.poisson_encode(9, x.to(card), T).cpu(), want)
+    xc = x.to(card)
+    assert torch.equal(_graph_replay(lambda: (ops.poisson_encode(
+        9, xc, T),))[0].cpu(), want)
+    shifted = torch.empty(B * D + 1, device=card)[1:].view(B, D)
+    shifted.copy_(xc)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(ops.poisson_encode(9, shifted, T).cpu(), want)
 
 
 # --------------------------------------------------------------------------

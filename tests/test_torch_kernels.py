@@ -209,6 +209,96 @@ def test_poisson_encode_rejects_a_seed_outside_int32():
 
 
 # --------------------------------------------------------------------------
+# the encoder kernel's launch plan and index walk, emulated in numpy: a
+# thread owns 4 consecutive plane positions from one division and steps to
+# the next (b, d); block row y takes t_per_block timesteps
+# --------------------------------------------------------------------------
+
+def _mix_u32(h):
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def _emulate_encoder(seed, x, T, plan):
+    """The raster the kernel writes under ``plan``, following its loops,
+    and how many times each (t, position) was written."""
+    B, D = x.shape
+    BD = B * D
+    (gx, gy), tpb = plan["grid"], plan["t_per_block"]
+    assert plan["threads"] == 256
+    out = np.full((T, BD), -1, np.int64)
+    writes = np.zeros((T, BD), np.int64)
+    j0 = np.arange(gx * 256, dtype=np.int64) * 4
+    j0 = j0[j0 < BD]                           # threads with work
+    b, d = j0 // D, j0 % D                     # the one division
+    flat = x.reshape(-1)
+    for k in range(4):
+        j = j0 + k
+        ok = j < BD
+        with np.errstate(invalid="ignore", over="ignore"):
+            c = np.clip(flat[j[ok]], np.float32(0), np.float32(1))
+            scaled = np.minimum(c * np.float32(2.0**32),
+                                np.float32(4294967040.0))
+            thr = np.where(np.isnan(c), 0, scaled).astype(np.uint32)
+        always = c >= 1
+        bd_hash = ((b[ok] * 0x85EBCA77) ^ (d[ok] * 0xC2B2AE3D)).astype(
+            np.uint64) & 0xFFFFFFFF
+        for y in range(gy):
+            for t in range(y * tpb, min(T, (y + 1) * tpb)):
+                st = (seed & 0xFFFFFFFF) ^ ((t * 0x9E3779B1) & 0xFFFFFFFF)
+                h = _mix_u32((np.uint64(st) ^ bd_hash).astype(np.uint32))
+                out[t, j[ok]] = ((h < thr) | always).astype(np.int64)
+                writes[t, j[ok]] += 1
+        d = d + 1                              # step to the next position
+        wrap = d == D
+        d[wrap], b[wrap] = 0, b[wrap] + 1
+    return out.reshape(T, B, D), writes
+
+
+@pytest.mark.parametrize("B,D,T,n_sm", [
+    (1, 1, 1, 132), (3, 30, 7, 132), (4, 3, 9, 132), (1, 5, 2, 132),
+    (2, 2, 100, 132), (8, 784, 25, 132), (8, 784, 25, 1), (5, 7, 11, 1),
+    (3, 30, 100, 2)])
+def test_encoder_plan_writes_each_position_once_and_equals_plain(B, D, T,
+                                                                 n_sm):
+    from repro_torch.kernels import poisson_encode as enc
+
+    x = _intensities(B, D, B * D + T)
+    x.reshape(-1)[-1] = np.nan
+    plan = enc.launch_plan(T, B, D, n_sm)
+    assert plan["vector"] == (B * D % 4 == 0)
+    for seed in (0, -1, 2**31 - 1):
+        got, writes = _emulate_encoder(seed, x, T, plan)
+        assert (writes == 1).all()
+        want = tref.poisson_encode_ref(seed, torch.from_numpy(x), T)
+        assert np.array_equal(got, want.numpy())
+
+
+def test_encoder_plan_fills_the_card_at_the_large_shape():
+    from repro_torch.kernels import poisson_encode as enc
+
+    T, B, D = 100, 256, 784
+    plan = enc.launch_plan(T, B, D, 132)
+    (gx, gy), tpb = plan["grid"], plan["t_per_block"]
+    assert gx * 256 * 4 == B * D and gy * tpb >= T > (gy - 1) * tpb
+    assert plan["vector"]
+    wave = 132 * 2048  # resident threads of the H100's 132 SMs
+    assert tpb > 1 and gx * gy * 256 >= 1.5 * wave  # ~2 waves, t split
+    # with the plane alone a fraction of a wave, t takes the rest; a plane
+    # that fills the card keeps every timestep in one block row
+    assert enc.launch_plan(T, 1024, 4096, 132)["grid"][1] == 1
+    # at the bench's shape a block row is one timestep
+    assert enc.launch_plan(25, 8, 784, 132)["t_per_block"] == 1
+    with pytest.raises(ValueError, match="2\\^31"):
+        enc.launch_plan(2, 1 << 16, 1 << 15, 132)
+    with pytest.raises(ValueError, match="nothing"):
+        enc.launch_plan(0, 4, 4, 132)
+
+
+# --------------------------------------------------------------------------
 @pytest.mark.parametrize("B,S,P", [(1, 1, 1), (2, 40, 33), (5, 160, 300),
                                    (8, 128, 128), (3, 1056, 64)])
 def test_spike_timestep_ref_matches_jax(B, S, P):

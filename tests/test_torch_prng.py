@@ -123,10 +123,12 @@ def test_poisson_encode_float64_input_is_rounded_to_float32_first():
     assert np.array_equal(got.numpy(), want)
 
 
-def test_poisson_encode_seed_and_key_agree_and_rate_holds():
+def test_poisson_encode_rate_holds_and_keys_differ():
     x = np.full((2, 5000), 0.3, np.float32)
-    a = tcoding.poisson_encode(11, x, 4)
-    b = tcoding.poisson_encode(prng.key(11), torch.from_numpy(x), 4)
-    assert torch.equal(a, b)
+    a = tcoding.poisson_encode(prng.key(11), x, 4)
+    assert torch.equal(a, tcoding.poisson_encode(prng.key(11),
+                                                 torch.from_numpy(x), 4))
     assert abs(float(a.mean()) - 0.3) < 0.01
-    assert not torch.equal(a, tcoding.poisson_encode(12, x, 4))
+    assert not torch.equal(a, tcoding.poisson_encode(prng.key(12), x, 4))
+    with pytest.raises(ValueError, match=r"\(2,\)"):
+        tcoding.poisson_encode(11, x, 4)  # a key, not a seed, as in JAX
