@@ -44,7 +44,24 @@ in phases that each exit non-zero on failure:
    epilogue; memset, external leg, recurrent leg) from ``torch.profiler``;
    the LIF update and the encoder also where their bytes bind (past the
    50 MB L2), each beside the launch floor (one LIF launch on a (1, 1)
-   input) and its share of the byte bound.
+   input) and its share of the byte bound;
+6. drives the event path and Cerebra-S on the card. The configuration of
+   ``examples/event_camera.py``: 64 gesture clips x 32 steps of a
+   16 x 16 x 2 sensor (512 inputs) as one AER stream made on the card, the
+   gesture net (96 hidden + 8 outputs) on the default 32 x 32 Cerebra-H
+   array, ``engine.run`` AER in and AER out on "cuda" and "cuda-f32" x
+   both gates x ``fuse_steps`` 1 and 8, each equal to the host's
+   "reference" in spikes, ``v_final`` and the output stream;
+   ``SpikeServer.feed_events`` (8 slots, 16 clips, ragged chunks of 1..12
+   steps) equal to ``feed``; the trace and the measured counts equal to
+   the host's, priced by the Table V energy model. Then Cerebra-S on the
+   paper's 784-256-10 net (B 8 x T 100 threefry Poisson input at 0.25) on
+   "cuda" and "cuda-f32" (the kernels' multiply decay) equal to the host
+   reference in spikes, cycles and SOPs, its speedup against Cerebra-H,
+   and the float software baseline card against host. It prints the
+   device and wall time of ``dense_to_aer``, ``aer_to_dense``,
+   ``engine.run`` at K 1 and 8, and one Cerebra-S step, beside the card's
+   name and power limit.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -1161,6 +1178,281 @@ def phase_times_elementwise(np, torch, lif, enc, ref, ops):
 
 
 # --------------------------------------------------------------------------
+# phase 6: the event path and Cerebra-S on the card
+# --------------------------------------------------------------------------
+GESTURE_CLIPS, GESTURE_T, GESTURE_SIZE = 64, 32, 16
+FEED_CLIPS = 16
+S_BATCH, S_STEPS, S_INTENSITY = 8, 100, 0.25
+SW_AGREE_MIN = 0.999  # card vs host float rasters (summation orders differ)
+
+
+def make_gesture_net(np, SNNetwork, LIFParams, rng, n_in, *, hidden=96,
+                     n_out=8):
+    """The random sparse gesture SNN of ``examples/event_camera.py``
+    (numpy, copied): 96 hidden + 8 output neurons over the sensor."""
+    n_neurons = hidden + n_out
+    W = np.zeros((n_in + n_neurons, n_neurons), np.float32)
+    W[:n_in, :hidden] = ((rng.random((n_in, hidden)) < 0.08)
+                         * rng.normal(0.0, 0.9, (n_in, hidden)))
+    W[n_in:n_in + hidden, hidden:] = (
+        (rng.random((hidden, n_out)) < 0.4)
+        * rng.normal(0.0, 0.6, (hidden, n_out)))
+    return SNNetwork(
+        n_inputs=n_in, n_neurons=n_neurons, weights=W,
+        params=LIFParams(decay_rate=0.25, threshold=1.0, reset_mode="zero"),
+        output_slice=(hidden, n_neurons))
+
+
+def streams_equal(torch, a, b) -> bool:
+    return (a.shape == b.shape and torch.equal(a.addrs.cpu(), b.addrs.cpu())
+            and torch.equal(a.count.cpu(), b.count.cpu())
+            and torch.equal(a.total.cpu(), b.total.cpu()))
+
+
+def device_and_wall_us(torch, fn, n) -> tuple[float, float, float]:
+    """Per eager call: µs between CUDA events, host wall µs to the end of
+    the work (synchronized), over ``n`` calls after two warm-up calls; and
+    the µs the device is busy: the device time of all its launches
+    (kernels, memsets, copies) from ``torch.profiler``, per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(getattr(evt, "device_time_total", 0)
+               for evt in prof.key_averages()) / n
+    return start.elapsed_time(end) / n * 1e3, wall, busy
+
+
+def serve_clips(np, torch, aer, server_cls, engine, dense, lens, events):
+    """The first FEED_CLIPS clips through a SpikeServer of 8 slots x
+    8-step chunks in ragged chunks (``lens``), all attached at once (8
+    wait) and detached when done; with ``events`` through feed_events
+    (each chunk an AER stream made on the card, the outputs re-encoded),
+    else through feed. Returns {clip: raster}."""
+    srv = server_cls(engine, n_slots=N_SLOTS, chunk_steps=CHUNK,
+                     device="cuda")
+    T = dense.shape[0]
+    cursor = {}
+    pieces = {uid: [] for uid in range(FEED_CLIPS)}
+    for uid in range(FEED_CLIPS):
+        srv.attach(uid)
+        cursor[uid] = [0, 0]
+    while cursor:
+        inputs = {}
+        for uid, (cur, k) in cursor.items():
+            if srv.slot_of(uid) is None:
+                continue
+            n = int(min(lens[uid, k], T - cur))
+            chunk = dense[cur:cur + n, uid]
+            if events:
+                inputs[uid] = aer.dense_to_aer(
+                    torch.from_numpy(chunk[:, None, :]).cuda(),
+                    int(chunk.sum()))
+            else:
+                inputs[uid] = chunk
+            cursor[uid] = [cur + n, k + 1]
+        out = (srv.feed_events(inputs, out_capacity=12 * 1024)
+               if events else srv.feed(inputs))
+        for uid, res in out.items():
+            pieces[uid].append(res["spikes"])
+            if events:
+                check(np.array_equal(
+                    aer.aer_to_dense(res["events"]).numpy()[:, 0],
+                    res["spikes"]), "feed_events' output stream != raster")
+        for uid in [u for u, (cur, _) in cursor.items() if cur >= T]:
+            cursor.pop(uid)
+            srv.detach(uid)
+    return {uid: np.concatenate(p, axis=0) for uid, p in pieces.items()}
+
+
+def phase_event_path(np, torch, ops):
+    """examples/event_camera.py on the card: gesture clips as one AER
+    stream, AER in and AER out of the Cerebra-H engine on both kernel
+    backends x gates x K 1 / 8, feed_events against feed, the trace and
+    the measured counts; every result against the host's reference."""
+    from repro_torch.core import cerebra_h, energy
+    from repro_torch.core.lif import LIFParams
+    from repro_torch.core.network import SNNetwork
+    from repro_torch.data import events as ev_data
+    from repro_torch.events import aer, trace
+    from repro_torch.serving.snn import SpikeServer
+
+    stream, labels = ev_data.gesture_events(
+        "test", GESTURE_CLIPS, steps=GESTURE_T, size=GESTURE_SIZE, seed=0)
+    T, B, D = stream.shape
+    check(D == 512 and len(labels) == B, f"gesture stream shape {stream.shape}")
+    dense = aer.aer_to_dense(stream)  # host
+    n_in_events = int(stream.total)
+    log(f"{B} gesture clips x {T} steps on a {GESTURE_SIZE}x{GESTURE_SIZE}x2 "
+        f"sensor: {n_in_events} events ({100 * stream.sparsity:.2f}% dense)")
+    net = make_gesture_net(np, SNNetwork, LIFParams,
+                           np.random.default_rng(0), D)
+    prog = cerebra_h.compile_network(net)
+    host_eng = cerebra_h.make_engine(prog, "reference", device="cpu")
+    ref = host_eng.run(dense)
+    cap = int(ref["spikes"].sum())
+    check(cap > 0, "the gesture net emitted no spikes")
+    ref = host_eng.run(stream, events_capacity=cap)
+
+    dense_card = dense.cuda()
+    card_stream = aer.dense_to_aer(dense_card, n_in_events)
+    check(card_stream.addrs.device.type == "cuda"
+          and streams_equal(torch, card_stream, stream),
+          "dense_to_aer on the card != host")
+    check(torch.equal(aer.aer_to_packed(card_stream).cpu(),
+                      aer.aer_to_packed(stream))
+          and torch.equal(aer.aer_to_dense(card_stream).cpu(), dense),
+          "aer_to_packed / aer_to_dense on the card != host")
+
+    reset_launches(ops)  # just before the main path
+    engines = {}
+    for backend in ("cuda", "cuda-f32"):
+        for gate in ("batch-tile", "per-example"):
+            for K in (1, 8):
+                eng = cerebra_h.make_engine(prog, backend, device="cuda") \
+                    .with_gate(gate).with_fuse_steps(K)
+                out = eng.run(card_stream, events_capacity=cap)
+                what = f"event path {backend}/{gate}/K={K}"
+                check(torch.equal(out["spikes"].cpu(), ref["spikes"]),
+                      f"{what}: spikes != host reference")
+                check(torch.equal(out["v_final"].cpu(), ref["v_final"]),
+                      f"{what}: v_final != host reference")
+                check(streams_equal(torch, out["events"], ref["events"]),
+                      f"{what}: output AER stream != host reference")
+                engines[(backend, gate, K)] = (eng, out)
+    rng = np.random.default_rng(6)
+    lens = rng.integers(1, 13, (FEED_CLIPS, T))  # ragged chunks of 1..12
+    dense_np = dense.numpy()
+    served = {}
+    for backend, gate, K in (("cuda", "per-example", 1),
+                             ("cuda-f32", "batch-tile", 8)):
+        eng = engines[(backend, gate, K)][0]
+        by_feed = serve_clips(np, torch, aer, SpikeServer, eng, dense_np,
+                              lens, events=False)
+        by_events = serve_clips(np, torch, aer, SpikeServer, eng, dense_np,
+                                lens, events=True)
+        for uid in range(FEED_CLIPS):
+            check(np.array_equal(by_events[uid], by_feed[uid]),
+                  f"feed_events != feed ({backend}/{gate}/K={K}, clip {uid})")
+            check(np.array_equal(by_feed[uid], ref["spikes"][:, uid].numpy()),
+                  f"served clip {uid} != host reference run")
+        served[(backend, gate, K)] = sum(int(r.sum()) for r in
+                                         by_feed.values())
+    eng, out = engines[("cuda", "per-example", 1)]
+    report = trace.trace_run(eng, card_stream, out["events"])
+    check(report == trace.trace_run(host_eng, dense, ref["spikes"]),
+          "trace_run on the card's streams != host")
+    measured = trace.measured_counts(prog, card_stream, out["events"])
+    check(measured == trace.measured_counts(prog, dense, ref["spikes"]),
+          "measured_counts on the card's streams != host")
+    torch.cuda.synchronize()
+    launched = dict(ops.LAUNCHES)  # just after it
+    for name in ("spike_timestep", "spike_timestep_fused"):
+        check(launched[name] > 0, f"the event path launched no {name} "
+                                  f"kernel: {launched}")
+    log(f"event path: 8 runs (cuda, cuda-f32 x batch-tile, per-example x "
+        f"K 1, 8) == host reference in spikes, v_final and the output "
+        f"stream ({cap} spike events out); feed_events == feed == the run "
+        f"for {FEED_CLIPS} clips on 8 slots ({served}); LAUNCHES={launched}")
+    log(f"trace: {report.summary()}")
+    model = energy.EnergyModel.calibrated()
+    uj = model.energy_uj(measured)
+    log(f"measured energy: {measured.sops:.0f} SOPs, "
+        f"{measured.row_fetches:.0f} row fetches, {measured.cycles:.0f} "
+        f"cycles -> {uj['dynamic_uj']:.4f} uJ dynamic, "
+        f"{uj['total_uj']:.4f} uJ total ({model.e_sop_pj} pJ/SOP compute, "
+        f"{uj['pj_per_sop_system']:.1f} pJ/SOP system incl. static)")
+
+    times = {}
+    times["dense_to_aer"] = device_and_wall_us(
+        torch, lambda: aer.dense_to_aer(dense_card, n_in_events), 50)
+    times["aer_to_dense"] = device_and_wall_us(
+        torch, lambda: aer.aer_to_dense(card_stream), 50)
+    for K in (1, 8):
+        eng = engines[("cuda", "batch-tile", K)][0]
+        times[f"engine.run K={K}"] = device_and_wall_us(
+            torch, lambda: eng.run(card_stream), 10)
+    return launched, times
+
+
+def phase_cerebra_s(np, torch, ops, feedforward, cfg):
+    """Cerebra-S on the paper's 784-256-10 net: the kernel backends (their
+    multiply decay) against the host reference, S against H in time, and
+    the float software baseline card against host."""
+    from repro_torch.core import (cerebra_h, cerebra_s, coding, prng,
+                                  software, timing)
+    from repro_torch.core.engine import MXU_EXACT_BOUND, mxu_partial_sum_bound
+
+    net = mnist_nets(np, feedforward, cfg)["mnist0"]
+    ext = coding.poisson_encode(
+        prng.key(0), torch.full((S_BATCH, 784), S_INTENSITY), S_STEPS,
+        dtype=torch.int32)  # host, (T, B, 784)
+    ext_card = ext.cuda()
+    prog = cerebra_s.compile_network(net)
+    want = cerebra_s.run(prog, ext, "reference", device="cpu")
+    bound = mxu_partial_sum_bound(prog.weights_raw.numpy())
+    check(bound < MXU_EXACT_BOUND, f"Cerebra-S f32 bound {bound} >= 2^24")
+    reset_launches(ops)  # just before the main path
+    for backend in ("cuda", "cuda-f32"):
+        got = cerebra_s.run(prog, ext_card, backend, device="cuda")
+        for k in ("spikes", "output_counts", "cycles", "sops"):
+            check(torch.equal(got[k].cpu(), want[k]),
+                  f"Cerebra-S {backend}: {k} != host reference")
+    torch.cuda.synchronize()
+    launched = dict(ops.LAUNCHES)  # just after it
+    check(launched["spike_timestep"] == 2 * S_STEPS,
+          f"Cerebra-S launched {launched}")
+    check(cerebra_s.make_engine(prog, "cuda", device="cuda").decay.kind
+          == "mul", "Cerebra-S engine does not decay by multiply")
+    hprog = cerebra_h.compile_network(net, cfg.ACCELERATOR)
+    h_card = cerebra_h.run(hprog, ext_card, "cuda", device="cuda")
+    h_host = cerebra_h.run(hprog, ext, "reference", device="cpu")
+    check(torch.equal(h_card["cycles"].cpu(), h_host["cycles"]),
+          "Cerebra-H cycles on the card != host")
+    rep = timing.speedup_report(got["cycles"].cpu(), h_card["cycles"].cpu())
+    log(f"Cerebra-S 784-256-10, B {S_BATCH} x T {S_STEPS} Poisson at "
+        f"{S_INTENSITY}: cuda and cuda-f32 == host reference in spikes, "
+        f"output counts, cycles and SOPs ({int(want['spikes'].sum())} "
+        f"spikes, {int(want['sops'].sum())} SOPs; decay_raw "
+        f"{prog.decay_raw}, f32 worst block sum {bound} < 2^24); "
+        f"LAUNCHES={launched}")
+    log(f"speedup S vs H: {rep.cycles_s:.0f} vs {rep.cycles_h:.0f} cycles "
+        f"(x{rep.cycle_speedup:.2f}), clock x{rep.clock_speedup:.2f}, "
+        f"{rep.time_s_us:.1f} vs {rep.time_h_us:.1f} us "
+        f"(x{rep.total_speedup:.2f} total)")
+    sw_card = software.run_software(net, ext_card, device="cuda")
+    sw_host = software.run_software(net, ext, device="cpu")
+    agree = float((sw_card["spikes"].cpu() == sw_host["spikes"])
+                  .double().mean())
+    diff = float((sw_card["output_counts"].cpu()
+                  - sw_host["output_counts"]).abs().max())
+    check(agree >= SW_AGREE_MIN and diff <= 2,
+          f"software card vs host: agreement {agree}, counts off by {diff}")
+    log(f"software baseline card vs host: spike agreement {agree:.6f} "
+        f"(>= {SW_AGREE_MIN}), output counts within {diff:.0f} "
+        f"(allclose atol 2), {int(sw_host['spikes'].sum())} host spikes")
+    eng = cerebra_s.make_engine(prog, "cuda", device="cuda")
+    carry = eng.init_carry(S_BATCH)
+    ext_t = ext_card[0]
+    step = device_and_wall_us(torch, lambda: eng.step(carry, ext_t), 200)
+    return launched, step
+
+
+# --------------------------------------------------------------------------
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -1228,6 +1520,16 @@ def main() -> None:
                                        AcceleratorSession, feedforward, cfg,
                                        variants)
     lif_t, enc_t = phase_times_elementwise(np, torch, lif, enc, ref, ops)
+
+    log("phase 6: the event path and Cerebra-S on the card")
+    event_launches, event_times = phase_event_path(np, torch, ops)
+    s_launches, s_step = phase_cerebra_s(np, torch, ops, feedforward, cfg)
+    print(card, flush=True)  # name, power limit as nvidia-smi gives them
+    for what, (dev_us, wall_us, busy_us) in [*event_times.items(),
+                                             ("Cerebra-S step", s_step)]:
+        log(f"time {what}: device {dev_us:.1f} us between events, wall "
+            f"{wall_us:.1f} us, device busy {busy_us:.1f} us "
+            f"({100 * busy_us / wall_us:.1f} % of wall) per call ({card})")
     main_v = variants["batch-tile/exact"]
     main_f = fused_variants["batch-tile/exact"]
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
@@ -1248,6 +1550,8 @@ def main() -> None:
         "library_ms": None,
         "variants": variants,
         "served_stream_steps": served_steps,
+        "event_path_launches": event_launches["spike_timestep"],
+        "cerebra_s_launches": s_launches["spike_timestep"],
         "card": card,
     }, {
         "name": "spike_timestep_fused",
@@ -1266,6 +1570,7 @@ def main() -> None:
         "served_stream_steps_per_s": {
             f"{b}/{g}/K={k}": r for (b, g, k), r in sorted(rates.items())},
         "launcher_steps_per_s": launcher_rates,
+        "event_path_launches": event_launches["spike_timestep_fused"],
         "card": card,
     }] + [{
         "name": name,

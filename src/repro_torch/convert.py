@@ -21,8 +21,10 @@ from repro_torch.core.mapping import (
     communication_profile,
 )
 from repro_torch.core.network import SNNetwork
+from repro_torch.events.aer import AERStream
 
-__all__ = ["carry", "geometry", "lif_params", "network", "program"]
+__all__ = ["aer_stream", "carry", "geometry", "lif_params", "network",
+           "program"]
 
 
 def lif_params(*, decay_rate: float, threshold: float, reset_mode: str,
@@ -89,3 +91,17 @@ def carry(*, v: np.ndarray, spikes: np.ndarray, device="cpu") -> dict:
         "spikes": torch.from_numpy(
             np.array(spikes, np.int32, copy=True)).to(device),
     }
+
+
+def aer_stream(*, addrs: np.ndarray, count, total, shape,
+               device="cpu") -> AERStream:
+    """An ``AERStream`` from a JAX stream's arrays and static shape, its
+    tensors on ``device``. Rows are carried as they are (filler, rows past
+    ``count`` and rows past the shape included), so both packages decode
+    the same stream."""
+    return AERStream(
+        addrs=torch.from_numpy(np.array(addrs, np.int32, copy=True)
+                               ).reshape(-1, 3).to(device),
+        count=torch.tensor(int(count), dtype=torch.int32, device=device),
+        total=torch.tensor(int(total), dtype=torch.int32, device=device),
+        shape=tuple(int(d) for d in shape))

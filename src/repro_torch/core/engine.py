@@ -27,6 +27,7 @@ import torch
 from repro_torch.core import fixedpoint as fxp
 from repro_torch.core.lif import fire_reset, lif_init
 from repro_torch.device import resolve_device
+from repro_torch.events.aer import AERStream, aer_to_dense, dense_to_aer
 from repro_torch.kernels import ops
 from repro_torch.kernels.spike_timestep import exact_int32_matmul
 
@@ -344,14 +345,29 @@ class SpikeEngine:
                 carry, ext[t0:t0 + K], active[t0:t0 + K])
         return carry, raster[:T]
 
-    def run(self, ext_spikes) -> dict:
-        """Run the engine over a dense ``(T, B, n_inputs)`` spike train
-        from power-on. Returns ``{'spikes': (T, B, n_phys),
-        'v_final': (B, n_phys)}``, int32 on the engine's device."""
-        if not isinstance(ext_spikes, (np.ndarray, torch.Tensor)):
-            raise NotImplementedError(
-                "AER input is not ported yet (ROADMAP Queue 1 item 6); "
-                "pass a dense (T, B, n_inputs) array")
+    def run(self, ext_spikes, *, events_capacity: int | None = None,
+            events_policy: str = "error") -> dict:
+        """Run the engine from power-on over a spike train.
+
+        Args:
+          ext_spikes: dense ``(T, B, n_inputs)`` spikes (numpy or torch),
+            or an :class:`~repro_torch.events.aer.AERStream` addressing
+            that shape, decoded on the engine's device.
+          events_capacity: when set, the output raster is ALSO returned as
+            an AER stream of at most this many events under
+            ``events_policy`` ("error" refuses a lossy encode, "drop"
+            keeps the earliest events and flags overflow).
+        Returns:
+          ``{'spikes': (T, B, n_phys), 'v_final': (B, n_phys)}``, int32 on
+          the engine's device, plus ``'events'`` with ``events_capacity``.
+        """
+        if isinstance(ext_spikes, AERStream):
+            if ext_spikes.shape[2] != self.n_inputs:
+                raise ValueError(
+                    f"AER stream addresses {ext_spikes.shape[2]} sources; "
+                    f"engine expects {self.n_inputs} inputs"
+                )
+            ext_spikes = aer_to_dense(ext_spikes.to(self.device))
         ext = _as_int32(ext_spikes, self.device)
         if ext.ndim != 3 or ext.shape[2] != self.n_inputs:
             raise ValueError(f"ext_spikes must be (T, B, {self.n_inputs}), "
@@ -361,9 +377,13 @@ class SpikeEngine:
             active = torch.ones(ext.shape[:2], dtype=torch.int32,
                                 device=self.device)
             carry, raster = self._fused_scan(carry, ext, active)
-            return {"spikes": raster, "v_final": carry["v"]}
-        raster = torch.empty((ext.shape[0], ext.shape[1], self.n_phys),
-                             dtype=torch.int32, device=self.device)
-        for t in range(ext.shape[0]):
-            carry, raster[t] = self._step(carry, ext[t])
-        return {"spikes": raster, "v_final": carry["v"]}
+        else:
+            raster = torch.empty((ext.shape[0], ext.shape[1], self.n_phys),
+                                 dtype=torch.int32, device=self.device)
+            for t in range(ext.shape[0]):
+                carry, raster[t] = self._step(carry, ext[t])
+        out = {"spikes": raster, "v_final": carry["v"]}
+        if events_capacity is not None:
+            out["events"] = dense_to_aer(raster, events_capacity,
+                                         policy=events_policy)
+        return out

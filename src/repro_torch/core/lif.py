@@ -2,8 +2,8 @@
 
 Twin of :mod:`repro.core.lif` for the serving slice: the LIF parameters,
 the single fire/reset definition every datapath shares, the power-on
-state and the bit-exact fixed-point step. The surrogate-gradient training
-step waits for the training slice.
+state, the bit-exact fixed-point step and the float32 software-reference
+step. The surrogate-gradient training step waits for the training slice.
 
 Reset modes (paper §IV-B): ``hold`` keeps the membrane on a spike,
 ``zero`` clears it, ``subtract`` removes the threshold.
@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
+import numpy as np
 import torch
 
 from repro_torch.core import fixedpoint as fxp
@@ -24,6 +25,7 @@ __all__ = [
     "fire_reset",
     "lif_init",
     "lif_step_fixed",
+    "lif_step_float",
 ]
 
 ResetMode = Literal["hold", "zero", "subtract"]
@@ -54,15 +56,22 @@ def lif_init(shape, *, fixed: bool = False, device="cpu") -> dict:
     return {"v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def fire_reset(v_new: torch.Tensor, threshold: int, reset_mode: str):
-    """Threshold compare (``>=``) and reset on int32 potentials.
+def fire_reset(v_new: torch.Tensor, threshold, reset_mode: str):
+    """Threshold compare (``>=``) and reset.
 
-    Returns ``(v_out, spikes)``, both int32, spikes in {0, 1}. The
-    subtract reset wraps mod 2^32 like the hardware adder.
+    On int32 potentials (an int raw ``threshold``) returns ``(v_out,
+    spikes)``, both int32, spikes in {0, 1}; the subtract reset wraps mod
+    2^32 like the hardware adder. On float32 potentials (the software
+    reference, a float ``threshold``) both are float32 and the subtract
+    reset is a float subtract, as in the twin.
     """
-    spikes = (v_new >= threshold).to(torch.int32)
+    floating = v_new.is_floating_point()
+    spikes = (v_new >= threshold).to(v_new.dtype if floating
+                                     else torch.int32)
     if reset_mode == "zero":
         v_out = torch.where(spikes > 0, torch.zeros_like(v_new), v_new)
+    elif reset_mode == "subtract" and floating:
+        v_out = v_new - spikes * threshold
     elif reset_mode == "subtract":
         v_out = fxp.wrap_int32(v_new.to(torch.int64)
                                - spikes.to(torch.int64) * int(threshold))
@@ -82,4 +91,20 @@ def lif_step_fixed(state: dict, syn_input_raw: torch.Tensor,
                            + syn_input_raw.to(torch.int64))
     v_out, spikes = fire_reset(v_new, params.threshold_raw,
                                params.reset_mode)
+    return {"v": v_out}, spikes
+
+
+def lif_step_float(state: dict, syn_input: torch.Tensor, params: LIFParams):
+    """Software-reference LIF step (float32): ``v * beta``, then the add,
+    then :func:`fire_reset` at the float32 threshold.
+
+    ``beta`` and the threshold are rounded to float32 first, as the twin's
+    weakly typed ``v * beta`` and ``jnp.float32(threshold)`` are, so each
+    of the two operations is one correctly rounded float32 op.
+    Returns ``({'v': v_out}, spikes)``, float32, spikes in {0, 1}.
+    """
+    beta = float(np.float32(params.beta))
+    threshold = float(np.float32(params.threshold))
+    v_new = state["v"] * beta + syn_input
+    v_out, spikes = fire_reset(v_new, threshold, params.reset_mode)
     return {"v": v_out}, spikes

@@ -16,9 +16,10 @@ recurrent image once per window); the port's CUDA kernel reads fewer
 recurrent rows (only those of neurons that spiked), so for the port it is
 an upper bound on the recurrent leg, while the external leg is exact.
 
-Rasters are dense numpy arrays or torch tensors. AER streams are not
-ported yet (ROADMAP Queue 1 item 6), and ``measured_counts`` waits for
-``core/energy.py`` (ROADMAP Queue 1 item 5).
+Rasters are dense numpy arrays, torch tensors or
+:class:`~repro_torch.events.aer.AERStream` streams. :func:`measured_counts`
+hands the measured totals to the energy model as
+:class:`~repro_torch.core.energy.WorkloadCounts`.
 """
 
 from __future__ import annotations
@@ -28,23 +29,23 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.events.aer import AERStream, aer_to_dense
+
 __all__ = [
     "SpikeTraceReport",
     "block_traffic",
     "fused_block_traffic",
+    "measured_counts",
     "trace_run",
 ]
 
 
 def _as_dense(x) -> np.ndarray:
+    if isinstance(x, AERStream):
+        x = aer_to_dense(x)
     if isinstance(x, torch.Tensor):
         return x.cpu().numpy()
-    if isinstance(x, np.ndarray):
-        return x
-    raise NotImplementedError(
-        f"the trace takes dense (T, B, S) numpy arrays or torch tensors, "
-        f"got {type(x).__name__}; AER streams are not ported yet (ROADMAP "
-        f"Queue 1 item 6)")
+    return np.asarray(x)
 
 
 def block_traffic(sources, *, block_src: int = 128,
@@ -214,4 +215,34 @@ def trace_run(engine, ext_spikes, spikes, *, block_src: int = 128,
             "per-example": block_traffic(
                 sources, block_src=block_src, tile_batch=1),
         },
+    )
+
+
+def measured_counts(program, ext_spikes, spikes):
+    """Measured :class:`~repro_torch.core.energy.WorkloadCounts` for a
+    Cerebra-H program.
+
+    SOPs and SRAM row fetches are COUNTED from the real rasters (each
+    source event contributes its actual nonzero synapses / its actual
+    existing ``(source, cluster)`` rows); only ``cycles`` comes from the
+    timing model. The batch axis sums, as in
+    :func:`repro_torch.core.energy.counts_from_run`.
+    """
+    from repro_torch.core import cerebra_h
+    from repro_torch.core.energy import WorkloadCounts
+    from repro_torch.core.engine import sources_raster
+
+    ext = torch.from_numpy(_as_dense(ext_spikes))
+    out = torch.from_numpy(_as_dense(spikes))
+    sources = sources_raster(ext, out).numpy() != 0      # (T, B, S)
+    fanout = np.asarray(program.fanout)                  # (S,)
+    rows_per_event = np.asarray(program.row_exists).sum(axis=1)  # (S,)
+    sops = float((sources * fanout[None, None, :]).sum())
+    row_fetches = float((sources * rows_per_event[None, None, :]).sum())
+    cost = cerebra_h.cost_model(program, ext, out)
+    return WorkloadCounts(
+        sops=sops,
+        row_fetches=row_fetches,
+        spike_packets=row_fetches,
+        cycles=float(np.sum(cost["cycles"].numpy())),
     )

@@ -14,10 +14,12 @@ The carry never leaves the device. Each chunk moves only its
 ``(chunk_steps, n_slots, n_inputs)`` input and its mask to the device and
 brings the spike raster back once. Exactness contract (as in the JAX
 twin): for any chunking of a raster, the concatenated ``feed`` outputs are
-byte-identical to one ``SpikeEngine.run`` on it.
+byte-identical to one ``SpikeEngine.run`` on it, and ``feed_events``
+(AER streams in, optionally AER out) is ``feed`` on the decoded chunks.
 
-Waiting for later slices: metrics / tracer hooks, ``feed_events`` (AER),
-and the carry snapshot / ``attach_stream`` methods of the connector.
+Waiting for later slices: metrics / tracer hooks (ROADMAP Queue 1 item 8)
+and the carry snapshot / ``attach_stream`` methods of the connector
+(item 7).
 """
 
 from __future__ import annotations
@@ -32,8 +34,10 @@ import torch
 
 from repro_torch.core.engine import SpikeEngine
 from repro_torch.device import resolve_device
+from repro_torch.events.aer import aer_to_dense, dense_to_aer
 
-__all__ = ["ModelStream", "SlotScheduler", "SpikeServer", "StreamStats"]
+__all__ = ["ModelStream", "SlotScheduler", "SpikeServer", "StreamStats",
+           "decode_aer_chunk"]
 
 
 class SlotScheduler:
@@ -102,6 +106,20 @@ class SlotScheduler:
             self._waiting.remove(uid)
         except ValueError:
             raise KeyError(f"stream {uid!r} is not waiting") from None
+
+
+def decode_aer_chunk(stream, n_inputs: int, label: str = "AER chunk"
+                     ) -> np.ndarray:
+    """Validate and decode a single-lane ``(T, 1, n_inputs)`` AER chunk to
+    its dense ``(T, n_inputs)`` int32 host raster: the entry contract of
+    :meth:`SpikeServer.feed_events` (one lane per stream: the slot address
+    inside the server is the server's business, not the caller's)."""
+    T, lanes, n_src = stream.shape
+    if lanes != 1 or n_src != n_inputs:
+        raise ValueError(
+            f"{label}: AER chunk must address (T, 1, {n_inputs}), "
+            f"got {stream.shape}")
+    return aer_to_dense(stream).cpu().numpy()[:, 0, :]
 
 
 @dataclasses.dataclass
@@ -247,6 +265,35 @@ class SpikeServer:
             st.steps += raster.shape[0]
             st.spike_count += int(raster.sum())
             out[uid] = {"spikes": raster, "counts": raster.sum(axis=0)}
+        return out
+
+    def feed_events(self, inputs: dict, *, out_capacity: int | None = None,
+                    out_policy: str = "error") -> dict:
+        """Event-driven :meth:`feed`: AER streams in, optionally AER out.
+
+        Each stream is decoded and pushed through the SAME masked chunk
+        step ``feed`` uses, so the byte-exactness contract carries over.
+
+        Args:
+          inputs: {uid: AERStream}, each addressing a dense ``(T_uid, 1,
+            n_inputs)`` chunk (slot axis 1: a stream is one lane).
+          out_capacity: when set, each stream's result also carries
+            ``'events'``: its output raster as an AER stream of at most
+            this many events under ``out_policy``.
+        Returns:
+          {uid: {'spikes', 'counts'[, 'events']}} exactly as :meth:`feed`.
+        """
+        dense_inputs = {
+            uid: decode_aer_chunk(stream, self.engine.n_inputs,
+                                  f"stream {uid!r}")
+            for uid, stream in inputs.items()
+        }
+        out = self.feed(dense_inputs)
+        if out_capacity is not None:
+            for res in out.values():
+                res["events"] = dense_to_aer(
+                    res["spikes"][:, None, :], out_capacity,
+                    policy=out_policy)
         return out
 
     def run_closed_loop(self, uid, controller, num_steps: int, ext0) -> dict:

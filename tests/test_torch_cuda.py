@@ -8,8 +8,12 @@ backends (single-step and K-step fused) against its reference backend,
 and the split designs of the two timestep kernels under stress: many
 source blocks, all-silent and dense sources, ragged B and P, P = 4096
 (more neuron tiles than a cluster holds), K = 16, back-to-back launches
-into reused buffers, and CUDA-graph replays; and the port's threefry and
-a seeded ``AcceleratorSession.run`` on the card against the host.
+into reused buffers, and CUDA-graph replays; the port's threefry and
+a seeded ``AcceleratorSession.run`` on the card against the host; and the
+event path and the rest of the compile layer on the card against the
+host: AER encode and decode, AER in and out of the engine at K 1 and 8,
+Cerebra-S on the kernel backends (their multiply decay), and the float
+software baseline under a global TF32 setting.
 """
 
 import pathlib
@@ -321,3 +325,124 @@ def test_split_fused_window_on_the_card(card, shape, density, block_batch,
     before = ops.LAUNCHES["spike_timestep_fused"]
     _check_split(lambda: tsf.spike_timestep_fused_cuda(*dev, **kw), want)
     assert ops.LAUNCHES["spike_timestep_fused"] == before + 4
+
+
+# --------------------------------------------------------------------------
+# the event path and the rest of the compile layer on the card
+# --------------------------------------------------------------------------
+
+def _stream_equal(a, b) -> bool:
+    return (a.shape == b.shape
+            and torch.equal(a.addrs.cpu(), b.addrs.cpu())
+            and torch.equal(a.count.cpu(), b.count.cpu())
+            and torch.equal(a.total.cpu(), b.total.cpu()))
+
+
+@pytest.mark.parametrize("capacity", [None, 100])
+def test_aer_on_the_card_equals_the_host(card, capacity):
+    from repro_torch import convert
+    from repro_torch.events import aer
+
+    rng = np.random.default_rng(21)
+    dense = (rng.random((32, 16, 512)) < 0.03).astype(np.int32)
+    cap = int(dense.sum()) if capacity is None else capacity
+    host = aer.dense_to_aer(dense, cap, policy="drop")
+    got = aer.dense_to_aer(torch.from_numpy(dense).to(card), cap,
+                           policy="drop")
+    assert got.addrs.device.type == "cuda"
+    assert _stream_equal(got, host) and got.overflowed == host.overflowed
+    assert torch.equal(aer.aer_to_packed(got).cpu(),
+                       aer.aer_to_packed(host))
+    assert torch.equal(aer.aer_to_dense(got).cpu(), aer.aer_to_dense(host))
+    # rows past count, filler and rows past the shape scatter nothing,
+    # with no device-side assert
+    hand = dict(addrs=np.array([[0, 0, 31], [0, 0, 31], [31, 15, 511],
+                                [32, 0, 0], [0, 16, 0], [0, 0, 512],
+                                [-1, -1, -1], [1, 1, 1]], np.int32),
+                count=7, total=8, shape=(32, 16, 512))
+    on_card = convert.aer_stream(**hand, device=card)
+    assert torch.equal(aer.aer_to_packed(on_card).cpu(),
+                       aer.aer_to_packed(convert.aer_stream(**hand)))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-f32"])
+@pytest.mark.parametrize("K", [1, 8])
+@pytest.mark.parametrize("gate", list(teng.GATES))
+def test_aer_engine_on_the_card_equals_the_host(card, backend, K, gate):
+    from repro_torch.events import aer
+
+    rng = np.random.default_rng(22)
+    n_in, P = 512, 104
+    W = (rng.normal(0, 0.5, (n_in + P, P)) * 65536
+         * (rng.random((n_in + P, P)) < 0.08)).astype(np.int32)
+    ext = (rng.random((32, 16, n_in)) < 0.03).astype(np.int32)
+    kw = dict(decay=teng.DecaySpec.shift(0.25), threshold_raw=1 << 16,
+              reset_mode="zero")
+    ref = teng.SpikeEngine(W, n_in, backend="reference", device="cpu",
+                           **kw).run(ext, events_capacity=ext.size)
+    eng = teng.SpikeEngine(W, n_in, backend=backend, gate=gate,
+                           fuse_steps=K, device=card, **kw)
+    before = dict(ops.LAUNCHES)
+    got = eng.run(aer.dense_to_aer(torch.from_numpy(ext).to(card),
+                                   int(ext.sum())),
+                  events_capacity=ext.size)
+    torch.cuda.synchronize()
+    name = "spike_timestep" if K == 1 else "spike_timestep_fused"
+    assert ops.LAUNCHES[name] > before[name]
+    assert torch.equal(got["spikes"].cpu(), ref["spikes"])
+    assert torch.equal(got["v_final"].cpu(), ref["v_final"])
+    assert _stream_equal(got["events"], ref["events"])
+    assert int(ref["spikes"].sum()) > 0
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-f32"])
+def test_cerebra_s_on_the_card_equals_the_host(card, backend):
+    from repro_torch.core import cerebra_s
+    from repro_torch.core.lif import LIFParams
+    from repro_torch.core.network import feedforward
+
+    rng = np.random.default_rng(23)
+    ws = [rng.normal(0.0, 1.0 / np.sqrt(a), (a, b)).astype(np.float32)
+          for a, b in ((100, 64), (64, 10))]
+    net = feedforward(ws, LIFParams(decay_rate=0.1))
+    prog = cerebra_s.compile_network(
+        net, cerebra_s.CerebraSConfig(n_physical_neurons=128))
+    ext = (rng.random((20, 8, 100)) < 0.25).astype(np.int32)
+    want = cerebra_s.run(prog, ext, "reference", device="cpu")
+    before = ops.LAUNCHES["spike_timestep"]
+    got = cerebra_s.run(prog, ext, backend, device=card)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["spike_timestep"] == before + 20
+    assert cerebra_s.make_engine(prog, backend, device=card).decay.kind == \
+        "mul"
+    for k in ("spikes", "output_counts", "cycles", "sops"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    assert int(want["spikes"].sum()) > 0
+
+
+def test_software_on_the_card_ignores_a_global_tf32(card):
+    """A weight of 1 - 2^-20 is exact in float32 and rounds to 1.0 in
+    TF32: with TF32 the neurons would fire at threshold 1.0 on step 0."""
+    from repro_torch.core import software
+    from repro_torch.core.lif import LIFParams
+    from repro_torch.core.network import SNNetwork
+
+    n_in, n = 64, 128
+    W = np.zeros((n_in + n, n), np.float32)
+    W[0] = np.float32(1.0 - 2.0 ** -20)
+    W[1] = np.float32(2.0 ** -20)
+    net = SNNetwork(n_inputs=n_in, n_neurons=n, weights=W,
+                    params=LIFParams(decay_rate=0.25, threshold=1.0))
+    ext = np.zeros((3, 8, n_in), np.float32)
+    ext[:, :, 0] = 1.0
+    ext[2, :, 1] = 1.0
+    want = software.run_software(net, ext, device="cpu")
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = software.run_software(net, ext, device=card)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert torch.equal(got["spikes"].cpu(), want["spikes"])
+    assert want["spikes"][0].sum() == 0 and want["spikes"][1].sum() > 0

@@ -16,6 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import engine as jeng  # noqa: E402
 from repro_torch.core import engine as teng  # noqa: E402
+from repro_torch.events.aer import dense_to_aer  # noqa: E402
 
 THRESH = 1 << 16
 N_IN, P = 20, 48
@@ -157,8 +158,10 @@ def test_unported_paths_raise_and_rehosting_is_identical():
         assert torch.equal(fused.run(ext)[k], te.run(ext)[k])
     with pytest.raises(NotImplementedError):
         te.to_mesh(None)
-    with pytest.raises(NotImplementedError, match="AER"):
-        te.run(object())  # e.g. an AER stream
+    # AER input is ported: a stream runs as its dense raster
+    stream = dense_to_aer(ext, int(ext.sum()))
+    for k in ("spikes", "v_final"):
+        assert torch.equal(te.run(stream)[k], te.run(ext)[k])
     # the reference backend has no kernel, so K > 1 is the plain loop
     ref4 = teng.SpikeEngine(W, N_IN, decay=teng.DecaySpec.shift(0.25),
                             threshold_raw=THRESH, reset_mode="zero",

@@ -32,6 +32,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import cerebra_h as tch  # noqa: E402
 from repro_torch.core import engine as teng  # noqa: E402
 from repro_torch.core.session import AcceleratorSession as TSession  # noqa: E402
+from repro_torch.events import aer as taer  # noqa: E402
 from repro_torch.events import trace as ttrace  # noqa: E402
 from repro_torch.kernels import bitpack  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
@@ -319,8 +320,12 @@ def test_trace_run_matches_jax_and_counts_follow_the_kernel():
     for K in (1, 2, 4):
         kernel = int((tops.ext_gate_activity(ext, fuse_steps=K) > 0).sum())
         assert kernel == ttrace.block_traffic(ext, fuse_steps=K)[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ttrace.block_traffic([[[1]]])
+    # AER streams and nested lists are read as their dense rasters, as in
+    # the twin
+    stream = taer.dense_to_aer(ext, int(ext.sum()))
+    assert ttrace.block_traffic(stream, fuse_steps=4) == \
+        ttrace.block_traffic(ext, fuse_steps=4)
+    assert ttrace.block_traffic([[[1]]]) == jtrace.block_traffic([[[1]]])
 
 
 # --------------------------------------------------------------------------
