@@ -61,7 +61,26 @@ in phases that each exit non-zero on failure:
    and the float software baseline card against host. It prints the
    device and wall time of ``dense_to_aer``, ``aer_to_dense``,
    ``engine.run`` at K 1 and 8, and one Cerebra-S step, beside the card's
-   name and power limit.
+   name and power limit;
+7. drives the front door on the card: phase 3's plan on "cuda" and
+   "cuda-f32" x ``fuse_steps`` 1 and 8, each run byte-equal to phase 3's
+   uninterrupted rasters: every live stream moved once by
+   ``migrate_stream`` mid-plan; ``checkpoint_streams`` into a
+   ``FileCarryConnector`` and ``restore_streams`` on a fresh session and
+   server; a third model deployed with streams in flight (a rolling
+   redeploy) and the group re-served; and ``session.serve(frontend=...)``
+   with ``submit`` and the pump thread, once FIFO and once under a
+   two-class QoS policy with preemption and deadlines that park and
+   resume streams. A metrics registry and a span tracer ride the runs:
+   the server's counters must equal ``events.trace.measured_counts`` of
+   the served rasters, and the traced lifecycles must reconstruct without
+   a violation. Then ``serve_snn --async --qos ... --qos-preempt`` and the
+   ``--drain`` drill with ``--connector``, ``--metrics -``, ``--trace`` and
+   ``--json-summary``, and ``kernel_bench --async --qos --migrate
+   --obs-overhead --json``. It prints the wall time of
+   ``snapshot_stream``, ``attach_stream``, ``migrate_stream`` and a
+   ``FileCarryConnector`` insert / select of a P = 1024 carry, async
+   against sync stream-steps/s at K 1 and 8, and the obs overhead ratio.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -645,11 +664,13 @@ def phase_serve(np, torch, ops, session_cls, feedforward, cfg):
     plan = serve_plan(np)
     launches, served_steps, fused_launches = 0, 0, 0
     rates = {}  # (backend, gate, K) -> served stream-steps per second
+    refs = {}   # gate -> the reference backend's rasters (phase 7 reads)
     f32_bound = None
     for gate in ("batch-tile", "per-example"):
         t0 = time.perf_counter()
         ref, ref_pred, ref_sess, _ = serve_once(np, torch, session_cls, cfg,
                                                 nets, "reference", gate, plan)
+        refs[gate] = ref
         log(f"served {len(ref)} streams x {STREAM_T} steps on reference "
             f"({gate}) in {time.perf_counter() - t0:.2f} s")
         spikes = sum(int(r.sum()) for r in ref.values())
@@ -700,7 +721,7 @@ def phase_serve(np, torch, ops, session_cls, feedforward, cfg):
         fused_launches += serve_fused(np, torch, ops, session_cls, cfg, nets,
                                       plan, gate, ref, ref_pred, rates)
     log(f"f32 worst-case block sum {f32_bound} (< 2^24 = {1 << 24})")
-    return launches, served_steps, fused_launches, rates
+    return launches, served_steps, fused_launches, rates, refs
 
 
 def serve_fused(np, torch, ops, session_cls, cfg, nets, plan, gate, ref,
@@ -1453,6 +1474,444 @@ def phase_cerebra_s(np, torch, ops, feedforward, cfg):
 
 
 # --------------------------------------------------------------------------
+# phase 7: the front door on the card
+# --------------------------------------------------------------------------
+MID_ROUND = 12      # the round phase 7's sync runs move their streams at
+
+
+def third_net(np, feedforward, cfg):
+    """A net at the JAX tests' widths (64-40-10, the paper's LIF): it fits
+    the 8 clusters the two MNIST nets leave free and joins their group."""
+    rng = np.random.default_rng(300)
+    sizes = (64, 40, 10)
+    ws = [rng.normal(0.0, 1.0 / np.sqrt(a), (a, b)).astype(np.float32)
+          for a, b in zip(sizes[:-1], sizes[1:])]
+    return feedforward(ws, cfg.LIF)
+
+
+def front_session(session_cls, cfg, nets, backend, K, **kw):
+    sess = session_cls(cfg.ACCELERATOR, backend=backend, device="cuda",
+                       fuse_steps=K, **kw)
+    for name, net in nets.items():
+        sess.deploy(name, net)
+    return sess
+
+
+def serve_views(sess, names, frontend=None):
+    return {name: sess.serve(name, n_slots=N_SLOTS, chunk_steps=CHUNK,
+                             frontend=frontend) for name in names}
+
+
+def serve_hooked(np, views, plan, hook):
+    """Phase 3's plan through the sync loop, admitting a stream only when
+    a slot is free; at ``MID_ROUND`` ``hook(views)`` moves the live
+    streams and may hand back new views. Returns {uid: raster}."""
+    streams, arrivals = plan
+    arrivals = [list(a) for a in arrivals]
+    queue, live = [], {}
+    pieces = {uid: [] for uid in streams}
+    rnd, hooked = 0, False
+    while arrivals or queue or live:
+        if arrivals:
+            queue += arrivals.pop(0)
+        server = views["mnist0"].server
+        while queue and server.scheduler.free_slots > 0:
+            uid = queue.pop(0)
+            views[streams[uid][0]].attach(uid)
+            live[uid] = [0, 0]  # cursor, chunk index
+        if not hooked and rnd >= MID_ROUND and live:
+            views = hook(views) or views
+            hooked = True
+        per_model = {name: {} for name in views}
+        done = []
+        for uid, (cur, k) in live.items():
+            name, raster, lens = streams[uid]
+            n = int(min(lens[k], STREAM_T - cur))
+            per_model[name][uid] = raster[cur:cur + n]
+            live[uid] = [cur + n, k + 1]
+            if cur + n >= STREAM_T:
+                done.append(uid)
+        for name, inputs in per_model.items():
+            if inputs:
+                for uid, out in views[name].feed_many(inputs).items():
+                    pieces[uid].append(out["spikes"])
+        for uid in done:
+            live.pop(uid)
+            views[streams[uid][0]].detach(uid, reason="done")
+        rnd += 1
+    check(hooked, "the plan ended before its middle round")
+    return {u: np.concatenate(p, axis=0) for u, p in pieces.items()}
+
+
+def serve_async(np, sess, plan, frontend, deadline_every=0, timeout_s=300):
+    """The plan through ``session.serve(frontend=...)`` and ``submit``, the
+    pump on its own thread. The frontend's clock counts pump rounds, so a
+    deadline of 3000 ms is 3 rounds: a stream given one parks mid-flight
+    (or, still queued, expires and is submitted again) and is resumed.
+    Returns ({uid: raster}, frontend metrics, wall seconds)."""
+    streams, arrivals = plan
+    views = serve_views(sess, ("mnist0", "mnist1"), frontend)
+    fe = views["mnist0"].frontend
+    check(fe is not None and fe is views["mnist1"].frontend,
+          "co-resident views do not share one frontend")
+    fe.clock = lambda: float(fe.rounds)
+    order = [uid for a in arrivals for uid in a]
+    t0 = time.perf_counter()
+    fe.start(poll_interval_s=0.0002)
+    handles = {}
+    for uid in order:
+        name, raster, _ = streams[uid]
+        dl = 3000.0 if deadline_every and uid % deadline_every == 0 else None
+        handles[uid] = views[name].submit(raster, deadline_ms=dl)
+    while True:
+        pending = 0
+        for uid, h in handles.items():
+            if h.state == "parked":
+                fe.resume(h)
+            elif h.state == "expired" and not h.result():
+                name, raster, _ = streams[uid]  # expired while queued
+                handles[uid] = views[name].submit(raster)
+            pending += not h.done
+        if not pending and fe.idle:
+            break
+        if fe._pump_error is not None:
+            fe.stop(drain=False)    # raises the pump thread's error
+        if time.perf_counter() - t0 > timeout_s:
+            fe.stop(drain=False)
+            fail(f"the async front door did not finish in {timeout_s} s")
+        time.sleep(0.0005)
+    fe.stop(drain=True)
+    wall = time.perf_counter() - t0
+    out = {}
+    for uid, h in handles.items():
+        check(h.state == "done", f"async stream {uid} ended {h.state}")
+        res = h.result()
+        check("partial" not in res, f"async stream {uid} is partial")
+        out[uid] = res["spikes"]
+    return out, fe.metrics(), wall
+
+
+def check_measured(np, sess, metrics, plan, rasters, what):
+    """The server's measured-work counters == events.trace.measured_counts
+    of the served rasters, summed over the two models. measured_counts
+    counts a program's logical synapses (nonzero float weights) and the
+    server the quantized ones the kernels multiply: the programs are
+    given their quantized fanout first, and the SOPs of synapses that
+    quantize to 0 are returned beside the check."""
+    import dataclasses
+
+    from repro_torch.core.energy import counts_from_registry
+    from repro_torch.events.trace import measured_counts
+
+    streams, _ = plan
+    sops = rows = logical = 0.0
+    for name in ("mnist0", "mnist1"):
+        prog = sess.models[name].program
+        raw = prog.weights_raw.reshape(prog.n_sources, -1).cpu().numpy()
+        quantized = dataclasses.replace(prog,
+                                        fanout=np.count_nonzero(raw, axis=1))
+        uids = [u for u in sorted(streams) if streams[u][0] == name]
+        ext = np.stack([streams[u][1] for u in uids], axis=1)
+        out = np.stack([rasters[u] for u in uids], axis=1)
+        want = measured_counts(quantized, ext, out)
+        sops += want.sops
+        rows += want.row_fetches
+        logical += measured_counts(prog, ext, out).sops
+    got = counts_from_registry(metrics)
+    check((got.sops, got.row_fetches) == (sops, rows),
+          f"{what}: server counters {got.sops} SOPs / {got.row_fetches} rows "
+          f"!= measured_counts {sops} / {rows}")
+    return sops, logical - sops
+
+
+def phase_front_door(np, torch, ops, session_cls, feedforward, cfg, ref):
+    """Migration, recovery, rolling redeploy and the async front door (FIFO
+    and two-class QoS with preemption) on "cuda" / "cuda-f32" x K 1 / 8,
+    every run byte-equal to phase 3's uninterrupted rasters, with the
+    server's counters == measured_counts and the traced lifecycles
+    violation-free. Returns (launch counts, {what: stream-steps/s})."""
+    from repro_torch.obs import MetricsRegistry, SpanTracer, reconstruct
+    from repro_torch.serving.connector import (FileCarryConnector,
+                                               InMemoryCarryConnector,
+                                               migrate_stream)
+    from repro_torch.serving.frontend import FrontendConfig
+    from repro_torch.serving.qos import QoSClass, QoSPolicy
+
+    nets = mnist_nets(np, feedforward, cfg)
+    plan = serve_plan(np)
+    names = ("mnist0", "mnist1")
+    launched = {name: 0 for name in ops.LAUNCHES}
+    rates = {}
+    qos = QoSPolicy(classes={"mnist0": QoSClass(priority=1, weight=4),
+                             "mnist1": QoSClass(priority=0, weight=1)},
+                    preempt=True)
+
+    def run(what, fn):
+        """One path: counts to 0 just before it, read just after."""
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        got, metrics, tracer, sess, extra = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for name, n in ops.LAUNCHES.items():
+            launched[name] += n
+        kernel = "spike_timestep" if K == 1 else "spike_timestep_fused"
+        check(ops.LAUNCHES[kernel] > 0, f"{what}: no {kernel} launch")
+        check(set(got) == set(ref) and all(
+            np.array_equal(got[u], ref[u]) for u in ref),
+            f"{what}: rasters != phase 3's uninterrupted reference")
+        sops, underflow = check_measured(np, sess, metrics, plan, got, what)
+        if tracer is not None:
+            rep = reconstruct(tracer)   # raises LifecycleViolation
+            n_tl = len(rep.streams)
+        else:
+            n_tl = 0
+        rates[what] = N_STREAMS * STREAM_T / dt
+        log(f"{what}: {len(got)} rasters byte-equal to the uninterrupted "
+            f"reference; counters == measured_counts ({sops:.0f} SOPs; "
+            f"{underflow:.0f} more on weights that quantize to 0); "
+            f"{n_tl} timelines violation-free; {extra}; "
+            f"{N_STREAMS * STREAM_T} stream-steps in {dt:.2f} s; "
+            f"LAUNCHES={dict(ops.LAUNCHES)}")
+
+    for backend in ("cuda", "cuda-f32"):
+        for K in (1, 8):
+            tag = f"{backend}/K={K}"
+
+            def migration():
+                m, tr = MetricsRegistry(), SpanTracer()
+                sess = front_session(session_cls, cfg, nets, backend, K,
+                                     metrics=m, tracer=tr)
+                moves = []
+
+                def hook(views):
+                    server = views["mnist0"].server
+                    conn = InMemoryCarryConnector()
+                    active = sorted(server.scheduler.active.items(),
+                                    key=lambda kv: kv[1])
+                    parked = None
+                    if server.scheduler.free_slots == 0:
+                        parked = active.pop(0)
+                        server.detach_stream(parked[0], conn)
+                    for uid, old in active:
+                        migrate_stream(server, uid,
+                                       slot=server.scheduler.free_slot_ids[-1])
+                        moves.append((uid, old, server.slot_of(uid)))
+                    if parked is not None:
+                        uid, old = parked
+                        slot = [s for s in server.scheduler.free_slot_ids
+                                if s != old][0]
+                        server.attach_stream(conn, uid, slot=slot)
+                        moves.append((uid, old, slot))
+                    check(all(a != b for _, a, b in moves),
+                          "a migrated stream stayed in its slot")
+
+                got = serve_hooked(np, serve_views(sess, names), plan, hook)
+                return got, m, tr, sess, f"{len(moves)} live streams moved"
+
+            def recovery():
+                m = MetricsRegistry()
+                sess = front_session(session_cls, cfg, nets, backend, K,
+                                     metrics=m)
+                box = {}
+                tmp = tempfile.TemporaryDirectory()
+
+                def hook(views):
+                    root = tmp.name
+                    uids = views["mnist0"].server.checkpoint_streams(
+                        FileCarryConnector(root))
+                    fresh = front_session(session_cls, cfg, nets, backend,
+                                          K, metrics=m)
+                    new_views = serve_views(fresh, names)
+                    back = new_views["mnist0"].server.restore_streams(
+                        FileCarryConnector(root))
+                    check(sorted(back) == sorted(uids),
+                          f"restored {back} of checkpointed {uids}")
+                    box["n"], box["sess"] = len(back), fresh
+                    return new_views
+
+                got = serve_hooked(np, serve_views(sess, names), plan, hook)
+                tmp.cleanup()
+                return (got, m, None, box["sess"],
+                        f"{box['n']} streams restored on a fresh server")
+
+            def redeploy():
+                m, tr = MetricsRegistry(), SpanTracer()
+                sess = front_session(session_cls, cfg, nets, backend, K,
+                                     metrics=m, tracer=tr)
+                box = {}
+
+                def hook(views):
+                    live = set(views["mnist0"].server.scheduler.active)
+                    sess.deploy("third", third_net(np, feedforward, cfg))
+                    new_views = serve_views(sess, names)
+                    back = set(new_views["mnist0"].server.scheduler.active)
+                    check(back == live, "the redeploy lost a live stream")
+                    box["n"] = len(live)
+                    return new_views
+
+                got = serve_hooked(np, serve_views(sess, names), plan, hook)
+                check(m.counter("snn_session_redeploys_total").value == 1,
+                      "no rolling redeploy counted")
+                return got, m, tr, sess, (f"{box['n']} live streams across "
+                                          f"a third model's deploy")
+
+            def async_run(policy, deadline_every):
+                def go():
+                    m, tr = MetricsRegistry(), SpanTracer()
+                    sess = front_session(session_cls, cfg, nets, backend, K,
+                                         metrics=m, tracer=tr)
+                    fe_cfg = FrontendConfig(queue_capacity=2 * N_STREAMS,
+                                            spill=deadline_every > 0,
+                                            qos=policy)
+                    got, fm, wall = serve_async(np, sess, plan, fe_cfg,
+                                                deadline_every)
+                    c = fm["counts"]
+                    return got, m, tr, sess, (
+                        f"{c['done']} done, {c['parked']} parked, "
+                        f"{c['resumed']} resumed, {c['evicted']} preempted, "
+                        f"{fm['rounds']} pump rounds")
+                return go
+
+            run(f"migration {tag}", migration)
+            run(f"recovery {tag}", recovery)
+            run(f"rolling redeploy {tag}", redeploy)
+            run(f"async FIFO {tag}", async_run(None, 0))
+            run(f"async QoS+preempt {tag}", async_run(qos, 3))
+    return launched, rates
+
+
+def median_us(fn, n=100, setup=None):
+    times = []
+    for _ in range(n):
+        if setup is not None:
+            setup()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return times[len(times) // 2] * 1e6
+
+
+def phase_carry_times(np, torch, session_cls, feedforward, cfg):
+    """Wall µs of one snapshot_stream, attach_stream, migrate_stream and
+    one FileCarryConnector insert / select of a P = 1024 carry, on the
+    served slice ("cuda", 7 of 8 slots live)."""
+    from repro_torch.serving.connector import (FileCarryConnector,
+                                               migrate_stream)
+
+    sess = front_session(session_cls, cfg, mnist_nets(np, feedforward, cfg),
+                         "cuda", 1)
+    views = serve_views(sess, ("mnist0", "mnist1"))
+    server = views["mnist0"].server
+    streams, _ = serve_plan(np)
+    for uid in range(N_SLOTS - 1):
+        name, raster, _ = streams[uid]
+        views[name].attach(uid)
+        views[name].feed(uid, raster[:CHUNK])
+    torch.cuda.synchronize()
+    uid = 0
+    out = {"snapshot_stream": median_us(lambda: server.snapshot_stream(uid))}
+    snap = server.snapshot_stream(uid)
+    out["attach_stream"] = median_us(
+        lambda: server.attach_stream(snap, uid=uid),
+        setup=lambda: server.detach(uid))
+    slots = iter(range(10**6))
+    out["migrate_stream"] = median_us(lambda: migrate_stream(
+        server, uid, slot=server.scheduler.free_slot_ids[0]
+        if next(slots) % 2 else server.scheduler.free_slot_ids[-1]))
+    with tempfile.TemporaryDirectory() as root:
+        conn = FileCarryConnector(root)
+        out["FileCarryConnector.insert"] = median_us(
+            lambda: conn.insert(uid, snap))
+        out["FileCarryConnector.select"] = median_us(
+            lambda: conn.select(uid))
+    check(len(snap.to_bytes()) > 8 * 1024, "a P = 1024 carry is 8 KiB+")
+    return out, len(snap.to_bytes())
+
+
+def phase_front_door_entry_points(torch, ops):
+    """serve_snn --async --qos ... --qos-preempt --connector DIR --metrics -
+    --trace FILE --json-summary, and the sync --drain drill; then
+    kernel_bench --async --qos --migrate --obs-overhead --json. Returns
+    (launch counts, the bench's obs-overhead record)."""
+    import contextlib
+    import io
+
+    from repro_torch.benchmarks import kernel_bench
+    from repro_torch.launch import serve_snn
+    from repro_torch.obs import reconstruct
+
+    launched = {name: 0 for name in ops.LAUNCHES}
+    base = ["--device", "cuda", "--backend", "cuda", "--models", "2",
+            "--n-inputs", "784", "--n-neurons", "266",
+            "--steps-per-stream", "100", "--seed", "0"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for what, extra in (
+                ("async", ["--async", "--arrival-rate", "2000",
+                           "--qos", "hi=1:4,bg=0:1", "--qos-preempt",
+                           "--burst", "hi", "--deadline-ms", "40",
+                           "--slo-p99-ms", "50"]),
+                # a third 784-266-10 net would not fit the array: 200
+                ("drain", ["--drain", "4", "--fuse-steps", "8",
+                           "--n-neurons", "200"])):
+            reset_launches(ops)
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                summary = serve_snn.main(
+                    base + extra + ["--connector", str(tmp / f"c-{what}"),
+                                    "--metrics", "-", "--trace",
+                                    str(tmp / f"{what}.jsonl"),
+                                    "--json-summary"])
+            torch.cuda.synchronize()
+            for name, n in ops.LAUNCHES.items():
+                launched[name] += n
+            out = text.getvalue()
+            check("snn_server_sops_total" in out and '"mode"' in out,
+                  f"serve_snn {what}: no metrics or JSON summary on stdout")
+            check(summary["launches"] == dict(ops.LAUNCHES),
+                  f"serve_snn {what}: launch counts disagree")
+            check(sum(summary["launches"].values()) > 0,
+                  f"serve_snn {what} launched no kernel")
+            rep = reconstruct(str(tmp / f"{what}.jsonl"))
+            if what == "async":
+                c = summary["frontend"]["counts"]
+                check(c["submitted"] == 24, "serve_snn --async submissions")
+                check(summary["server"]["steps"] == summary["steps"],
+                      "serve_snn --async step counters disagree")
+            else:
+                check(summary["streams_done"] == 24 and
+                      summary["steps"] == 2400, "serve_snn --drain lost work")
+                check("hot-deployed" in out, "serve_snn --drain did not drain")
+            log(f"serve_snn {what}: {summary['steps']} stream-steps at "
+                f"{summary['steps_per_s']:.1f}/s, {len(rep.streams)} "
+                f"timelines violation-free, LAUNCHES="
+                f"{summary['launches']}")
+        reset_launches(ops)
+        kernel_bench.main(["--device", "cuda", "--backend", "cuda",
+                           "--async", "--qos", "--migrate", "--obs-overhead",
+                           "--json", str(tmp / "bench.json")])
+        torch.cuda.synchronize()
+        for name, n in ops.LAUNCHES.items():
+            launched[name] += n
+        doc = json.loads((tmp / "bench.json").read_text())
+    check(doc["metadata"]["schema"] == 2, "kernel bench schema")
+    recs = doc["results"]
+    kinds = {r["kind"] for r in recs}
+    check({"async_frontend", "qos_frontend", "migration",
+           "obs_overhead"} <= kinds, f"kernel bench kinds {kinds}")
+    qos = {r["scenario"]: r for r in recs if r["kind"] == "qos_frontend"}
+    check(all(qos[s]["hi_p99_rounds"] < qos["fifo"]["hi_p99_rounds"]
+              for s in ("wfq", "preempt")),
+          "QoS did not isolate the burst class")
+    obs = [r for r in recs if r["kind"] == "obs_overhead"][0]
+    log(f"kernel_bench front door: {len(recs)} records; LAUNCHES="
+        f"{dict(ops.LAUNCHES)}")
+    return launched, obs
+
+
+# --------------------------------------------------------------------------
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -1502,7 +1961,7 @@ def main() -> None:
                             cfg)
 
     log("phase 3: the serving slice end to end, unfused and fused")
-    launches, served_steps, fused_launches, rates = phase_serve(
+    launches, served_steps, fused_launches, rates, refs = phase_serve(
         np, torch, ops, AcceleratorSession, feedforward, cfg)
     for (backend, gate, K), rate in sorted(rates.items()):
         log(f"served {backend} ({gate}) fuse_steps={K}: {rate:.1f} "
@@ -1524,12 +1983,37 @@ def main() -> None:
     log("phase 6: the event path and Cerebra-S on the card")
     event_launches, event_times = phase_event_path(np, torch, ops)
     s_launches, s_step = phase_cerebra_s(np, torch, ops, feedforward, cfg)
+
+    log("phase 7: the front door on the card")
+    front_launches, front_rates = phase_front_door(
+        np, torch, ops, AcceleratorSession, feedforward, cfg,
+        refs["batch-tile"])
+    carry_us, blob_bytes = phase_carry_times(np, torch, AcceleratorSession,
+                                             feedforward, cfg)
+    entry_launches, obs_rec = phase_front_door_entry_points(torch, ops)
+    for name in ("spike_timestep", "spike_timestep_fused"):
+        check(front_launches[name] > 0 and entry_launches[name] > 0,
+              f"phase 7 launched no {name} kernel")
+
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     for what, (dev_us, wall_us, busy_us) in [*event_times.items(),
                                              ("Cerebra-S step", s_step)]:
         log(f"time {what}: device {dev_us:.1f} us between events, wall "
             f"{wall_us:.1f} us, device busy {busy_us:.1f} us "
             f"({100 * busy_us / wall_us:.1f} % of wall) per call ({card})")
+    for what, us in carry_us.items():
+        log(f"time {what}: wall {us:.1f} us per call, a P = 1024 carry "
+            f"({blob_bytes} B blob) ({card})")
+    for backend in ("cuda", "cuda-f32"):
+        for K in (1, 8):
+            log(f"rate {backend} K={K}: async FIFO "
+                f"{front_rates[f'async FIFO {backend}/K={K}']:.1f} vs sync "
+                f"{rates[(backend, 'batch-tile', K)]:.1f} stream-steps/s "
+                f"(phase 3) ({card})")
+    log(f"obs overhead (kernel_bench --obs-overhead, cuda): "
+        f"{obs_rec['overhead_frac']:+.4f} (instrumented "
+        f"{obs_rec['instrumented_us_per_step']} vs bare "
+        f"{obs_rec['bare_us_per_step']} us/step) ({card})")
     main_v = variants["batch-tile/exact"]
     main_f = fused_variants["batch-tile/exact"]
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
@@ -1552,6 +2036,8 @@ def main() -> None:
         "served_stream_steps": served_steps,
         "event_path_launches": event_launches["spike_timestep"],
         "cerebra_s_launches": s_launches["spike_timestep"],
+        "front_door_launches": front_launches["spike_timestep"],
+        "front_door_entry_launches": entry_launches["spike_timestep"],
         "card": card,
     }, {
         "name": "spike_timestep_fused",
@@ -1571,6 +2057,11 @@ def main() -> None:
             f"{b}/{g}/K={k}": r for (b, g, k), r in sorted(rates.items())},
         "launcher_steps_per_s": launcher_rates,
         "event_path_launches": event_launches["spike_timestep_fused"],
+        "front_door_launches": front_launches["spike_timestep_fused"],
+        "front_door_entry_launches": entry_launches["spike_timestep_fused"],
+        "front_door_stream_steps_per_s": front_rates,
+        "carry_wall_us": carry_us,
+        "obs_overhead_frac": obs_rec["overhead_frac"],
         "card": card,
     }] + [{
         "name": name,

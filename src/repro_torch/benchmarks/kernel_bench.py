@@ -22,21 +22,35 @@ versions on the host. Sections:
   cross-checked between the trace's window-OR model and the gate scalars
   the fused kernel acts on (a disagreement raises), and engine time per
   backend x K;
+* ``--async``: the ``AsyncSpikeFrontend`` request queue on a virtual
+  clock (one unit per pump round) at under- and overload, per
+  backpressure policy: outcome counts, queue depth, queue-wait and
+  service percentiles in rounds;
+* ``--qos``: one adversarial burst-over-background plan through FIFO,
+  WFQ and preemptive QoS admission, per-class p99 in rounds (the
+  isolation claim is enforced on the reference backend);
+* ``--migrate``: carry snapshot latency, in-memory and file-backed
+  detach -> attach round trips and the blob size, against the feed
+  quantum a slot runs in that time;
+* ``--obs-overhead``: the same feed loop bare and with a metrics
+  registry and a span tracer on, paired per chunk (the 5 % budget is
+  enforced on the reference backend);
 * the kernel block: ``ops.spike_timestep`` (record
   ``kernel/spike_timestep_fused``: the step with its LIF epilogue fused)
   against ``ref.spike_timestep_ref``, the active source blocks, and
   ``ops.lif_step`` and ``ops.poisson_encode`` (always).
 
 ``--json PATH`` writes schema-v2 records with the card's name and power
-limit in the metadata. The JAX bench's ``--async``, ``--qos``,
-``--migrate``, ``--obs-overhead``, ``--devices N > 1`` and ``--mesh``
-need modules that are not ported yet; each raises ``SystemExit`` naming
-its ROADMAP item.
+limit in the metadata. ``--devices N > 1`` and ``--mesh`` need the mesh,
+which is not ported yet, and raise ``SystemExit`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
 
 import argparse
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -48,20 +62,14 @@ from repro_torch.core.engine import (BACKENDS, GATES, DecaySpec, SpikeEngine,
 from repro_torch.device import resolve_device
 from repro_torch.events import trace
 from repro_torch.kernels import ops, ref
+from repro_torch.obs import MetricsRegistry, SpanTracer
+from repro_torch.serving.connector import (FileCarryConnector,
+                                           InMemoryCarryConnector)
+from repro_torch.serving.frontend import AsyncSpikeFrontend
+from repro_torch.serving.qos import QoSClass, QoSPolicy
 from repro_torch.serving.snn import SpikeServer
 
 N_IN, P = 784, 1024
-
-# flags of the JAX bench whose modules are not ported yet
-_UNPORTED = {
-    "async_mode": ("--async", "the async front door, ROADMAP Queue 1 "
-                              "item 8"),
-    "qos": ("--qos", "the QoS front door, ROADMAP Queue 1 item 8"),
-    "migrate": ("--migrate", "the carry connector, ROADMAP Queue 1 item 7"),
-    "obs_overhead": ("--obs-overhead", "observability, ROADMAP Queue 1 "
-                                       "item 8"),
-    "mesh": ("--mesh", "the mesh, ROADMAP Queue 1 item 9"),
-}
 
 
 def _randint(rng, lo, hi, shape, device) -> torch.Tensor:
@@ -271,6 +279,262 @@ def bench_fuse_steps(backends, fuse_list, sparsities, *, batch: int,
                      traffic_ratio=round(touched / max(total, 1), 4))
 
 
+def bench_async_frontend(backends, *, n_slots: int = 8,
+                         chunk_steps: int = 8, n_requests: int = 24,
+                         T: int = 32, activity: float = 0.05,
+                         queue_capacity: int = 6, device) -> None:
+    """The async front-door axis on a VIRTUAL clock (1 unit per pump
+    round): requests arrive open-loop at ``load`` x the slot service rate
+    (``n_slots * chunk_steps / T`` streams per round); underload keeps
+    the queue shallow, overload grows it until backpressure or a
+    deadline sheds load. Wall time gives the served steps/s beside the
+    outcome counts and queue-wait / service percentiles (in rounds)."""
+    rng = np.random.default_rng(0)
+    W = _weights(rng, device)
+    rasters = [(rng.random((T, N_IN)) < activity).astype(np.int32)
+               for _ in range(n_requests)]
+    service_rate = n_slots * chunk_steps / T  # streams retired per round
+    regimes = [(0.5, "reject", None), (2.0, "reject", None),
+               (2.0, "drop-oldest", None), (2.0, "reject", 3.0)]
+    for backend in backends:
+        engine = _engine(W, backend=backend, device=device)
+        for load, policy, deadline_rounds in regimes:
+            server = SpikeServer(engine, n_slots=n_slots,
+                                 chunk_steps=chunk_steps, device=device)
+            t_virtual = [0.0]
+            fe = AsyncSpikeFrontend(
+                server, queue_capacity=queue_capacity, backpressure=policy,
+                deadline_ms=(None if deadline_rounds is None
+                             else deadline_rounds * 1e3),
+                clock=lambda t=t_virtual: t[0])
+            arrive_at = [i / (load * service_rate)
+                         for i in range(n_requests)]
+            i = 0
+            t0 = time.perf_counter()
+            while i < n_requests or not fe.idle:
+                while i < n_requests and arrive_at[i] <= t_virtual[0]:
+                    fe.submit(rasters[i])
+                    i += 1
+                fe.pump()
+                t_virtual[0] += 1.0
+            wall = time.perf_counter() - t0
+            m = fe.metrics()
+            c = m["counts"]
+            dl = ("" if deadline_rounds is None
+                  else f"_dl{deadline_rounds:g}")
+            emit(f"async/frontend_{backend}_load{load:g}_{policy}{dl}",
+                 wall * 1e6 / max(server.total_steps, 1),
+                 f"{c.get('done', 0)}/{n_requests} done, "
+                 f"{c.get('rejected', 0)} rej, {c.get('dropped', 0)} drop, "
+                 f"{c.get('expired', 0)} exp, queue depth max "
+                 f"{m['queue_depth']['max']}/{queue_capacity}, "
+                 f"offered {load:g}x service rate",
+                 kind="async_frontend", backend=backend, load_factor=load,
+                 policy=policy, deadline_rounds=deadline_rounds,
+                 n_requests=n_requests, n_slots=n_slots,
+                 queue_capacity=queue_capacity,
+                 done=c.get("done", 0), rejected=c.get("rejected", 0),
+                 dropped=c.get("dropped", 0), expired=c.get("expired", 0),
+                 queue_depth_max=m["queue_depth"]["max"],
+                 queue_wait_p50_rounds=m["queue_wait"]["p50"],
+                 queue_wait_p95_rounds=m["queue_wait"]["p95"],
+                 service_p50_rounds=m["service"]["p50"],
+                 per_timestep=True)
+
+
+def bench_qos_frontend(backends, *, n_slots: int = 4, chunk_steps: int = 8,
+                       T: int = 32, n_bg: int = 16, n_hi: int = 8,
+                       activity: float = 0.05, device) -> None:
+    """Per-class latency isolation on a virtual clock: a background class
+    arrives at 2x the slot service rate while a burst class lands all at
+    once at round 6, through FIFO, WFQ (burst class in a higher stratum,
+    4x weight) and WFQ with preemption. The claim, high-priority p99
+    strictly below FIFO's at the same load, is ENFORCED on the reference
+    backend."""
+    rng = np.random.default_rng(0)
+    W = _weights(rng, device)
+    rasters = [(rng.random((T, N_IN)) < activity).astype(np.int32)
+               for _ in range(n_bg + n_hi)]
+    plan = sorted([(0.5 * i, "bg", rasters[i]) for i in range(n_bg)]
+                  + [(6.0, "hi", rasters[n_bg + i])
+                     for i in range(n_hi)], key=lambda e: e[0])
+    classes = {"hi": QoSClass(priority=1, weight=4),
+               "bg": QoSClass(priority=0, weight=1)}
+    scenarios = [("fifo", None), ("wfq", QoSPolicy(classes=classes)),
+                 ("preempt", QoSPolicy(classes=classes, preempt=True))]
+    for backend in backends:
+        engine = _engine(W, backend=backend, device=device)
+        fifo_hi_p99 = None
+        for scenario, policy in scenarios:
+            server = SpikeServer(engine, n_slots=n_slots,
+                                 chunk_steps=chunk_steps, device=device)
+            t_virtual = [0.0]
+            fe = AsyncSpikeFrontend(
+                server, queue_capacity=n_bg + n_hi + 1,
+                clock=lambda t=t_virtual: t[0], qos=policy,
+                connector=(InMemoryCarryConnector()
+                           if policy is not None and policy.preempt
+                           else None))
+            i = 0
+            t0 = time.perf_counter()
+            while i < len(plan) or not fe.idle:
+                while i < len(plan) and plan[i][0] <= t_virtual[0]:
+                    fe.submit(plan[i][2], tenant=plan[i][1])
+                    i += 1
+                fe.pump()
+                t_virtual[0] += 1.0
+            wall = time.perf_counter() - t0
+            m = fe.metrics()
+            hi, bg = m["by_class"]["hi"], m["by_class"]["bg"]
+            hi_p99, bg_p99 = hi["total"]["p99"], bg["total"]["p99"]
+            if scenario == "fifo":
+                fifo_hi_p99 = hi_p99
+            emit(f"qos/frontend_{backend}_{scenario}",
+                 wall * 1e6 / max(server.total_steps, 1),
+                 f"hi p99 {hi_p99:g} rounds vs bg {bg_p99:g} (fifo hi "
+                 f"{fifo_hi_p99:g}); {m['counts']['done']}/{len(plan)} "
+                 f"done, {m['counts']['evicted']} preempted",
+                 kind="qos_frontend", backend=backend, scenario=scenario,
+                 n_requests=len(plan), n_slots=n_slots,
+                 chunk_steps=chunk_steps,
+                 hi_p99_rounds=hi_p99, bg_p99_rounds=bg_p99,
+                 hi_p50_rounds=hi["total"]["p50"],
+                 bg_p50_rounds=bg["total"]["p50"],
+                 fifo_hi_p99_rounds=fifo_hi_p99,
+                 done=m["counts"]["done"],
+                 evicted=m["counts"]["evicted"],
+                 parked=m["counts"]["parked"],
+                 per_timestep=True)
+            if (backend == "reference" and scenario != "fifo"
+                    and not hi_p99 < fifo_hi_p99):
+                raise SystemExit(
+                    f"QoS isolation claim failed: {scenario} hi-class "
+                    f"p99 {hi_p99:g} rounds is not strictly below the "
+                    f"FIFO baseline {fifo_hi_p99:g} at the same offered "
+                    f"load")
+
+
+def bench_migration(backends, *, n_slots: int = 8, chunk_steps: int = 8,
+                    activity: float = 0.05, device) -> None:
+    """The price of a stream-state move beside the work it displaces:
+    snapshot latency (one device-to-host copy of the carry rows), an
+    in-memory and a file-backed detach -> attach round trip, and the
+    serialized blob size, against the ``chunk_steps`` feed quantum."""
+    rng = np.random.default_rng(0)
+    W = _weights(rng, device)
+    chunk = (rng.random((chunk_steps, N_IN)) < activity).astype(np.int32)
+    for backend in backends:
+        engine = _engine(W, backend=backend, device=device)
+        server = SpikeServer(engine, n_slots=n_slots,
+                             chunk_steps=chunk_steps, device=device)
+        uids = [server.attach(f"s{i}") for i in range(n_slots - 1)]
+        server.feed({uid: chunk for uid in uids})  # warm carries
+        uid = uids[0]
+        t_feed = time_call(
+            lambda: server.feed({u: chunk for u in uids})[uid]["spikes"])
+        snap = server.snapshot_stream(uid)
+        blob_bytes = len(snap.to_bytes())
+        t_snap = time_call(lambda: server.snapshot_stream(uid).to_bytes())
+
+        def roundtrip(conn):
+            server.detach_stream(uid, conn)
+            server.attach_stream(conn, uid)
+            return server.carry["v"]
+
+        t_mem = time_call(lambda: roundtrip(InMemoryCarryConnector()))
+        with tempfile.TemporaryDirectory() as d:
+            disk = FileCarryConnector(d)
+            t_disk = time_call(lambda: roundtrip(disk))
+        emit(f"migration/roundtrip_{backend}", t_mem,
+             f"snapshot {t_snap:.0f} us, mem move {t_mem:.0f} us, file "
+             f"move {t_disk:.0f} us, blob {blob_bytes} B vs "
+             f"{chunk_steps}-step feed quantum {t_feed:.0f} us",
+             kind="migration", backend=backend, n_slots=n_slots,
+             snapshot_us=round(t_snap, 2), roundtrip_mem_us=round(t_mem, 2),
+             roundtrip_file_us=round(t_disk, 2), blob_bytes=blob_bytes,
+             feed_quantum_us=round(t_feed, 2),
+             migration_vs_quantum=round(t_mem / max(t_feed, 1e-9), 4))
+
+
+def bench_obs_overhead(backends, *, n_slots: int = 8, chunk_steps: int = 8,
+                       rounds: int = 6, activity: float = 0.05,
+                       budget: float = 0.05, device) -> None:
+    """Telemetry must be ~free: the SAME feed loop bare and instrumented
+    (metrics registry + span tracer), timed back to back per chunk with
+    alternating order; the estimate is the median paired difference over
+    the median bare chunk, the floor of three trials. Beyond ``budget``
+    on the reference backend is a ``SystemExit``."""
+    rng = np.random.default_rng(0)
+    W = _weights(rng, device)
+    T = chunk_steps * rounds
+    rasters = [(rng.random((T, N_IN)) < activity).astype(np.int32)
+               for _ in range(n_slots)]
+    for backend in backends:
+        engine = _engine(W, backend=backend, device=device)
+
+        def make_server(telemetry: bool):
+            srv = SpikeServer(
+                engine, n_slots=n_slots, chunk_steps=chunk_steps,
+                device=device,
+                metrics=MetricsRegistry() if telemetry else None,
+                tracer=SpanTracer() if telemetry else None)
+            return srv, [srv.attach() for _ in range(n_slots)]
+
+        def chunk_at(uids, t0):
+            return {u: rasters[i][t0:t0 + chunk_steps]
+                    for i, u in enumerate(uids)}
+
+        def timed(server, chunks):
+            t = time.perf_counter()
+            server.feed(chunks)
+            return time.perf_counter() - t
+
+        bare, bare_uids = make_server(False)
+        inst, inst_uids = make_server(True)
+        for t0 in range(0, T, chunk_steps):  # warmup
+            bare.feed(chunk_at(bare_uids, t0))
+            inst.feed(chunk_at(inst_uids, t0))
+        estimates = []  # (overhead, median bare, median diff) per trial
+        for _ in range(3):
+            bare_s, diffs = [], []
+            for it in range(7):
+                for t0 in range(0, T, chunk_steps):
+                    cb = chunk_at(bare_uids, t0)
+                    ci = chunk_at(inst_uids, t0)
+                    if (it + t0 // chunk_steps) % 2:
+                        ti = timed(inst, ci)
+                        tb = timed(bare, cb)
+                    else:
+                        tb = timed(bare, cb)
+                        ti = timed(inst, ci)
+                    bare_s.append(tb)
+                    diffs.append(ti - tb)
+            bare_s.sort()
+            diffs.sort()
+            med_bare = bare_s[len(bare_s) // 2]
+            med_diff = diffs[len(diffs) // 2]
+            estimates.append((med_diff / med_bare, med_bare, med_diff))
+        overhead, med_bare, med_diff = min(estimates)
+        t_bare = med_bare * rounds * 1e6  # per feed loop
+        t_obs = (med_bare + med_diff) * rounds * 1e6
+        emit(f"obs/overhead_{backend}", t_obs / T,
+             f"instrumented {t_obs / T:.1f} vs bare {t_bare / T:.1f} "
+             f"us/timestep ({100 * overhead:+.2f}% with metrics+tracer on, "
+             f"{n_slots} slots x {chunk_steps}-step chunks)",
+             kind="obs_overhead", backend=backend, batch=n_slots,
+             activity=activity,
+             bare_us_per_step=round(t_bare / T, 3),
+             instrumented_us_per_step=round(t_obs / T, 3),
+             overhead_frac=round(overhead, 4),
+             per_timestep=True)
+        if backend == "reference" and overhead > budget:
+            raise SystemExit(
+                f"observability overhead {overhead:.1%} exceeds the "
+                f"{budget:.0%} budget on the reference backend "
+                f"(instrumented {t_obs / T:.1f} vs bare {t_bare / T:.1f} "
+                f"us/timestep)")
+
+
 def bench_kernels(*, batch: int, activity: float, device) -> None:
     """The kernel block: the gated step with its LIF epilogue against its
     oracle, the active source blocks, the LIF update and the encoder."""
@@ -342,15 +606,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="write machine-readable results (schema-v2 "
                          "records, the card named in the metadata)")
-    # the JAX bench's modes whose modules are not ported yet: each raises
     ap.add_argument("--async", dest="async_mode", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 8)")
+                    help="also benchmark the AsyncSpikeFrontend request "
+                         "queue per backpressure policy x offered load "
+                         "(under/overload on a virtual clock)")
     ap.add_argument("--qos", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 8)")
+                    help="also benchmark FIFO vs WFQ vs preemptive QoS "
+                         "admission on one burst-over-background plan "
+                         "(isolation claim enforced on the reference "
+                         "backend)")
     ap.add_argument("--migrate", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 7)")
+                    help="also benchmark stream-state migration: snapshot "
+                         "latency, in-memory and file round trips, blob "
+                         "size vs the feed quantum")
     ap.add_argument("--obs-overhead", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 8)")
+                    help="also benchmark the telemetry cost: the feed loop "
+                         "bare vs instrumented (5%% budget enforced on the "
+                         "reference backend)")
     ap.add_argument("--devices", type=int, default=1,
                     help="N > 1 is not ported yet (ROADMAP Queue 1 item 9)")
     ap.add_argument("--mesh", default=None, metavar="KNxKB",
@@ -368,10 +640,9 @@ def _parse_list(text: str, kind, flag: str) -> list:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    for attr, (flag, what) in _UNPORTED.items():
-        if getattr(args, attr):
-            raise SystemExit(f"{flag} needs {what}, which is not ported to "
-                             f"repro_torch yet")
+    if args.mesh:
+        raise SystemExit("--mesh needs the mesh, ROADMAP Queue 1 item 9, "
+                         "which is not ported to repro_torch yet")
     if args.devices != 1:
         raise SystemExit("--devices N > 1 needs the mesh, ROADMAP Queue 1 "
                          "item 9, which is not ported to repro_torch yet")
@@ -399,6 +670,15 @@ def main(argv=None) -> None:
     if args.streaming:
         bench_streaming(backends, n_slots=args.batch,
                         activity=args.activity, device=device)
+    if args.async_mode:
+        bench_async_frontend(backends, activity=args.activity,
+                             device=device)
+    if args.qos:
+        bench_qos_frontend(backends, activity=args.activity, device=device)
+    if args.migrate:
+        bench_migration(backends, activity=args.activity, device=device)
+    if args.obs_overhead:
+        bench_obs_overhead(backends, activity=args.activity, device=device)
     bench_kernels(batch=args.batch, activity=args.activity, device=device)
 
     if args.json:
@@ -406,8 +686,10 @@ def main(argv=None) -> None:
             args.json, device=device, bench="kernel_bench",
             args={"device": str(device), "batch": args.batch,
                   "activity": args.activity, "backend": args.backend,
-                  "streaming": args.streaming, "sparsity": args.sparsity,
-                  "fuse_steps": args.fuse_steps})
+                  "streaming": args.streaming, "async": args.async_mode,
+                  "qos": args.qos, "sparsity": args.sparsity,
+                  "fuse_steps": args.fuse_steps, "migrate": args.migrate,
+                  "obs_overhead": args.obs_overhead})
 
 
 if __name__ == "__main__":

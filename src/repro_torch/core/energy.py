@@ -168,11 +168,9 @@ def counts_from_registry(registry, *, cycles: float | None = None
                          ) -> WorkloadCounts:
     """Build WorkloadCounts from a live instrumented server's registry.
 
-    An instrumented server (the JAX package's
-    :class:`~repro.serving.snn.SpikeServer`; the port's obs hooks are
-    ROADMAP Queue 1 item 8) maintains
-    measured ``snn_server_sops_total`` / ``snn_server_row_fetches_total``
-    counters with ``events.trace`` semantics, so the analytic model can
+    An instrumented :class:`~repro_torch.serving.snn.SpikeServer` (built
+    with ``metrics=``) maintains measured ``snn_server_sops_total`` /
+    ``snn_server_row_fetches_total`` counters with ``events.trace`` semantics, so the analytic model can
     price a LIVE serving process the same way it prices an offline run.
     One spike packet per row fetch, as in :func:`counts_from_run`.
 

@@ -4,11 +4,10 @@ Twin of :mod:`repro.core.session`: deploys models into disjoint cluster
 ranges (multi-model co-residency), runs them solo or fused in one engine
 pass over the union SRAM image, and hands out streaming views
 (:meth:`AcceleratorSession.serve`) over one fused-engine server per LIF
-configuration.
-
-Not taken yet: the stream-state connector (a deploy while streams are
-live raises instead of draining them), the async ``frontend=``, the mesh
-and the metrics / tracer hooks.
+configuration, optionally behind one async frontend per server. A deploy
+while streams are live is a rolling redeploy: their carries park in the
+session's stream-state connector and the next ``serve`` restores them.
+The mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -43,15 +42,34 @@ class AcceleratorSession:
     a card) is where engines, carries and rasters live. ``fuse_steps`` K
     is the fused kernel window of every engine the session builds (1 =
     single-step kernels); outputs are byte-identical for any K.
+    ``connector`` (default: an
+    :class:`~repro_torch.serving.connector.InMemoryCarryConnector`) parks
+    in-flight carries across a redeploy and backs the frontends' spill;
+    ``metrics`` / ``tracer`` are threaded into every server, frontend and
+    connector the session builds.
     """
 
     def __init__(self, config: cerebra_h.CerebraHConfig | None = None,
                  backend: str = "reference", device="cuda",
-                 fuse_steps: int = 1):
+                 fuse_steps: int = 1, connector=None, metrics=None,
+                 tracer=None):
+        from repro_torch.serving.connector import InMemoryCarryConnector
+
         self.config = config or cerebra_h.CerebraHConfig()
         self.backend = backend
         self.device = resolve_device(device)
         self.fuse_steps = int(fuse_steps)
+        self.metrics = metrics
+        self.tracer = tracer
+        self.connector = (connector if connector is not None
+                          else InMemoryCarryConnector())
+        if (metrics is not None or tracer is not None) and hasattr(
+                self.connector, "instrument"):
+            self.connector.instrument(metrics, tracer)
+        # {lif signature: [(uid, connector key | None), ...]}: streams
+        # parked by deploy(), FIFO restore order, consumed by serve(); a
+        # None key is a stream that was still waiting for a slot
+        self._parked_groups: dict = {}
         self.models: dict[str, DeployedModel] = {}
         self._next_cluster = 0
         self._next_input = 0
@@ -59,6 +77,8 @@ class AcceleratorSession:
         self._fused_engines: dict = {}
         # {(group names, sig, backend, K, slots, chunk, gate): SpikeServer}
         self._stream_servers: dict = {}
+        # async front doors, keyed like the servers they queue for
+        self._frontends: dict = {}
         # bumped on every deploy; stale ModelStream views then raise
         self._serve_epoch = 0
 
@@ -73,19 +93,13 @@ class AcceleratorSession:
     def deploy(self, name: str, net: SNNetwork) -> DeployedModel:
         """Deploy a model into the next free cluster range (config path).
 
-        Raises ``NotImplementedError`` while any stream is attached: the
-        rolling redeploy drains live carries through the stream-state
-        connector, which is not ported yet.
-        """
+        A ROLLING redeploy when streams are in flight: every live stream
+        of every cached server is drained to the session connector first
+        (:meth:`_drain_streams`), and the next :meth:`serve` of its LIF
+        group restores it into the new fused server; the stream's raster
+        continues byte-identically across the deploy."""
         if name in self.models:
             raise ValueError(f"model {name!r} already deployed")
-        live = sum(len(s.scheduler.active) + len(s.scheduler.waiting)
-                   for s in self._stream_servers.values())
-        if live:
-            raise NotImplementedError(
-                f"deploy with {live} live stream(s) needs the stream-state "
-                f"connector to park their carries, which is not ported yet "
-                f"(ROADMAP Queue 3); detach the streams first")
         geom = self.geometry
         npc = geom.neurons_per_cluster
         need = -(-net.n_neurons // npc)  # ceil clusters
@@ -105,10 +119,45 @@ class AcceleratorSession:
         self.models[name] = model
         self._next_cluster += need
         self._next_input += net.n_inputs
+        parked = self._drain_streams()  # park in-flight carries first
         self._fused_engines.clear()   # resident set changed
         self._stream_servers.clear()  # fused layout changed with it
+        self._frontends.clear()       # queues die with their servers
         self._serve_epoch += 1
+        if self.metrics is not None:
+            self.metrics.counter("snn_session_deploys_total").inc()
+            if parked:
+                self.metrics.counter("snn_session_redeploys_total").inc()
+        if self.tracer is not None:
+            self.tracer.event("deploy", name, models=len(self.models),
+                              parked_streams=parked)
         return model
+
+    def _drain_streams(self) -> int:
+        """Rolling-redeploy drain: park every in-flight stream of every
+        cached server in the session connector. The next :meth:`serve` of
+        the same LIF group restores them (FIFO, what fits the new
+        server's slots), and their rasters continue byte-identically: the
+        physical array size is fixed across deploys, existing models keep
+        their cluster ranges and input offsets, and a new model's clusters
+        stay silent for other streams. Returns the carries parked."""
+        parked = 0
+        for key, server in self._stream_servers.items():
+            sig = key[1]
+            group = self._parked_groups.setdefault(sig, [])
+            epoch = self._serve_epoch
+            # admitted streams first (dict order = admission order), so
+            # FIFO restore keeps the pre-deploy service order
+            for uid in server.scheduler.active:
+                ckey = ("deploy", epoch, sig, uid)
+                self.connector.insert(ckey, server.snapshot_stream(uid))
+                group.append((uid, ckey))
+                parked += 1
+                if self.tracer is not None:
+                    self.tracer.event("redeployed", uid, epoch=epoch)
+            for uid in server.scheduler.waiting:
+                group.append((uid, None))
+        return parked
 
     # ------------------------------------------------------------------
     def _encode(self, key, intensities, num_steps: int) -> torch.Tensor:
@@ -219,14 +268,22 @@ class AcceleratorSession:
         All resident models sharing ``name``'s LIF configuration stream
         through ONE fused-engine server; repeated ``serve`` calls reuse it.
         ``gate`` selects the event-gate granularity (identical outputs).
-        A later :meth:`deploy` invalidates outstanding views.
+
+        ``frontend`` (a
+        :class:`~repro_torch.serving.frontend.FrontendConfig`) hangs ONE
+        :class:`~repro_torch.serving.frontend.AsyncSpikeFrontend` off the
+        group's server (co-resident views share its request queue) and
+        gives the view ``submit`` / ``submit_events``; async outputs stay
+        byte-identical to synchronous ``feed``. A conflicting config for
+        the same group raises.
+
+        A later :meth:`deploy` invalidates outstanding views; in-flight
+        streams park in the session connector and the re-``serve``
+        restores them.
         """
+        from repro_torch.serving.frontend import AsyncSpikeFrontend
         from repro_torch.serving.snn import ModelStream, SpikeServer
 
-        if frontend is not None:
-            raise NotImplementedError(
-                "the async frontend is not ported yet (ROADMAP Queue 1 "
-                "item 8); feed the view synchronously")
         model = self.models[name]
         sig = self._lif_signature(model.program)
         group = [m for m in self.models.values()
@@ -249,8 +306,36 @@ class AcceleratorSession:
                         f"one server")
             server = SpikeServer(self._fused_engine(group), n_slots=n_slots,
                                  chunk_steps=chunk_steps, gate=gate,
-                                 device=self.device)
+                                 device=self.device, metrics=self.metrics,
+                                 tracer=self.tracer)
             self._stream_servers[key] = server
+            self._restore_parked(sig, server)
+        fe = self._frontends.get(key)
+        if frontend is not None:
+            cfg = frontend
+            spill = cfg.spill or (cfg.qos is not None and cfg.qos.preempt)
+            if fe is None:
+                fe = AsyncSpikeFrontend(
+                    server, queue_capacity=cfg.queue_capacity,
+                    backpressure=cfg.backpressure,
+                    deadline_ms=cfg.deadline_ms,
+                    connector=self.connector if spill else None,
+                    metrics=self.metrics, tracer=self.tracer,
+                    slo=cfg.slo, qos=cfg.qos)
+                self._frontends[key] = fe
+            elif (fe.queue_capacity, fe.backpressure,
+                  fe.default_deadline_ms, fe.qos,
+                  fe.connector is not None) != (
+                      cfg.queue_capacity, cfg.backpressure,
+                      cfg.deadline_ms, cfg.qos, spill):
+                raise ValueError(
+                    f"group {group_key[0]} already has a frontend with "
+                    f"queue_capacity={fe.queue_capacity}, "
+                    f"backpressure={fe.backpressure!r}, "
+                    f"deadline_ms={fe.default_deadline_ms}, "
+                    f"spill={fe.connector is not None}, "
+                    f"qos={fe.qos}; co-resident "
+                    f"views must share one request queue")
         ext_offset = 0
         for m in group:
             if m.name == name:
@@ -267,7 +352,31 @@ class AcceleratorSession:
             phys_slice=(lo * npc, hi * npc),
             output_map=model.program.output_map,
             stale_check=lambda: self._serve_epoch != epoch,
+            frontend=fe,
         )
+
+    def _restore_parked(self, sig, server) -> list:
+        """Restore the streams :meth:`_drain_streams` parked for this LIF
+        group into the (new) server: FIFO, carries through
+        ``attach_stream``, still-waiting uids simply re-queued. Restores
+        what fits the free slots; the rest stay parked for a later
+        ``serve``. Returns the restored uids."""
+        parked = self._parked_groups.pop(sig, [])
+        restored, leftovers = [], []
+        for uid, ckey in parked:
+            if ckey is None:
+                server.attach(uid)
+                restored.append(uid)
+            elif server.scheduler.free_slots > 0:
+                snap = self.connector.select(ckey)
+                server.attach_stream(snap, uid=uid)
+                self.connector.evict(ckey)
+                restored.append(uid)
+            else:
+                leftovers.append((uid, ckey))
+        if leftovers:
+            self._parked_groups[sig] = leftovers
+        return restored
 
     def utilization(self) -> dict:
         geom = self.geometry

@@ -6,17 +6,20 @@ point. It is compiled by ``nvcc`` for ``sm_90a`` at first use into
 with ``ctypes``. The library's name carries a digest of the source and of
 the shared headers beside it, so an edited kernel is rebuilt and an
 unchanged one is reused. A failed build raises with ``nvcc``'s errors.
+The first build is safe under threads: a library builds and binds under
+its own lock, so two threads that launch the same kernel first compile it
+once, and every temporary file is named by process and thread.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 __all__ = ["CSRC", "LAUNCHES", "NVCC_FLAGS", "CudaLibrary"]
 
@@ -53,6 +56,8 @@ class CudaLibrary:
         self.source = pathlib.Path(source)
         self.entry = entry
         self.argtypes = list(argtypes)
+        self._lock = threading.Lock()
+        self._function = None
 
     def digest(self) -> str:
         h = hashlib.sha256(self.source.read_bytes())
@@ -64,11 +69,16 @@ class CudaLibrary:
         """Compile the source unless a build of this exact source exists.
         Returns ``(library path, compiler output)``; the output is empty
         when the cached build was reused."""
+        with self._lock:
+            return self._build()
+
+    def _build(self) -> tuple[pathlib.Path, str]:
         out = _build_dir() / f"lib{self.source.stem}_{self.digest()}.so"
         if out.exists():
             return out, ""
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp = out.with_name(
+            f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         proc = subprocess.run(
             [_nvcc(self.source), *NVCC_FLAGS, "-o", str(tmp),
              str(self.source)], capture_output=True, text=True)
@@ -78,11 +88,17 @@ class CudaLibrary:
         os.replace(tmp, out)
         return out, proc.stdout + proc.stderr
 
-    @functools.cached_property
+    @property
     def function(self):
         """The C entry point, building the library first if needed."""
-        path, _ = self.build()
-        fn = getattr(ctypes.CDLL(str(path)), self.entry)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        return fn
+        fn = self._function
+        if fn is not None:
+            return fn
+        with self._lock:
+            if self._function is None:
+                path, _ = self._build()
+                fn = getattr(ctypes.CDLL(str(path)), self.entry)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self._function = fn
+            return self._function

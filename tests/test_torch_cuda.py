@@ -13,7 +13,10 @@ a seeded ``AcceleratorSession.run`` on the card against the host; and the
 event path and the rest of the compile layer on the card against the
 host: AER encode and decode, AER in and out of the engine at K 1 and 8,
 Cerebra-S on the kernel backends (their multiply decay), and the float
-software baseline under a global TF32 setting.
+software baseline under a global TF32 setting; and the front door: a
+carry snapshot taken on the card equals the host's byte for byte and
+continues the stream on either, and the frontend's pump thread serves on
+the card what the host serves.
 """
 
 import pathlib
@@ -446,3 +449,77 @@ def test_software_on_the_card_ignores_a_global_tf32(card):
         torch.backends.cuda.matmul.allow_tf32 = old
     assert torch.equal(got["spikes"].cpu(), want["spikes"])
     assert want["spikes"][0].sum() == 0 and want["spikes"][1].sum() > 0
+
+
+def _front_engine(device, backend="cuda", K=1):
+    rng = np.random.default_rng(77)
+    n_in, P = 40, 96
+    W = ((rng.random((n_in + P, P)) < 0.3)
+         * rng.integers(-2**14, 2**14, (n_in + P, P))).astype(np.int32)
+    return teng.SpikeEngine(W, n_in, decay=teng.DecaySpec.shift(0.25),
+                            threshold_raw=1 << 16, reset_mode="zero",
+                            backend=backend, fuse_steps=K, device=device)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-f32"])
+@pytest.mark.parametrize("K", [1, 8])
+def test_snapshot_and_attach_on_the_card_equal_the_host(card, backend, K):
+    from repro_torch.serving.connector import CarrySnapshot
+    from repro_torch.serving.snn import SpikeServer
+
+    rng = np.random.default_rng(78)
+    ext = (rng.random((30, 40)) < 0.3).astype(np.int32)
+    servers = {d: SpikeServer(_front_engine(d, backend, K), n_slots=4,
+                              chunk_steps=5, device=d)
+               for d in ("cpu", "cuda")}
+    blobs, firsts = {}, {}
+    for d, s in servers.items():
+        s.attach("busy")
+        uid = s.attach("x")
+        firsts[d] = s.feed({uid: ext[:13], "busy": ext[5:9]})[uid]["spikes"]
+        blobs[d] = s.snapshot_stream(uid).to_bytes()
+    assert blobs["cuda"] == blobs["cpu"]
+    assert np.array_equal(firsts["cuda"], firsts["cpu"])
+    # the card's blob continues on the host and the host's on the card
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        s = servers[dst]
+        s.detach("x")
+        s.attach_stream(CarrySnapshot.from_bytes(blobs[src]), uid="x",
+                        slot=3)
+        assert s.carry["v"].device.type == dst
+        rest = s.feed({"x": ext[13:]})["x"]["spikes"]
+        want = _front_engine("cpu", "reference").run(
+            torch.from_numpy(ext[:, None, :]))["spikes"][:, 0].numpy()
+        assert np.array_equal(np.concatenate([firsts[src], rest]), want)
+
+
+@pytest.mark.parametrize("K", [1, 8])
+def test_frontend_pump_thread_on_the_card(card, K):
+    from repro_torch.serving.connector import InMemoryCarryConnector
+    from repro_torch.serving.frontend import AsyncSpikeFrontend
+    from repro_torch.serving.qos import QoSClass, QoSPolicy
+    from repro_torch.serving.snn import SpikeServer
+
+    rng = np.random.default_rng(79)
+    rasters = [(rng.random((int(T), 40)) < 0.3).astype(np.int32)
+               for T in rng.integers(5, 40, 12)]
+    policy = QoSPolicy(classes={"hi": QoSClass(priority=1),
+                                "bg": QoSClass()}, preempt=True)
+    outs = {}
+    for d in ("cpu", "cuda"):
+        server = SpikeServer(_front_engine(d, "cuda", K), n_slots=3,
+                             chunk_steps=4, device=d)
+        fe = AsyncSpikeFrontend(server, queue_capacity=32, qos=policy,
+                                connector=InMemoryCarryConnector())
+        fe.start(poll_interval_s=0.0002)
+        before = dict(ops.LAUNCHES)
+        hs = [fe.submit(r, tenant="hi" if i % 3 == 0 else "bg")
+              for i, r in enumerate(rasters)]
+        fe.stop(drain=True)
+        assert all(h.state == "done" for h in hs)
+        outs[d] = [h.result()["spikes"] for h in hs]
+        kernel = "spike_timestep" if K == 1 else "spike_timestep_fused"
+        launched = ops.LAUNCHES[kernel] - before[kernel]
+        assert (launched > 0) == (d == "cuda")
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert np.array_equal(a, b)

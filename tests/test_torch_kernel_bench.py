@@ -94,12 +94,67 @@ def test_cpu_bench_launches_no_kernel(docs):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--async"], "item 8"), (["--qos"], "item 8"), (["--migrate"], "item 7"),
-    (["--obs-overhead"], "item 8"), (["--devices", "4"], "item 9"),
-    (["--mesh", "2x2"], "item 9")])
+    (["--devices", "4"], "item 9"), (["--mesh", "2x2"], "item 9")])
 def test_unported_modes_raise_pointed_exits(argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 {item}"):
         tbench.main(["--device", "cpu", *argv])
+
+
+# --------------------------------------------------------------------------
+# the front-door modes: --async, --qos, --migrate, --obs-overhead
+# --------------------------------------------------------------------------
+
+FRONT_DOOR = ("async_frontend", "qos_frontend")
+
+
+@pytest.fixture(scope="module")
+def modes(tmp_path_factory):
+    """The port's front-door modes through its ``main`` on the CPU, and
+    the JAX bench's same sections on its reference backend."""
+    from benchmarks import common as jcommon
+
+    tmp = tmp_path_factory.mktemp("modes")
+    tbench.main(["--device", "cpu", "--backend", "cuda", "--async", "--qos",
+                 "--migrate", "--obs-overhead", "--json",
+                 str(tmp / "torch.json")])
+    jcommon.start_recording()
+    for section in (jbench.bench_async_frontend, jbench.bench_qos_frontend,
+                    jbench.bench_migration):
+        section(["reference"], activity=0.05)
+    jcommon.write_json(str(tmp / "jax.json"), bench="kernel_bench")
+    return (json.loads((tmp / "torch.json").read_text()),
+            json.loads((tmp / "jax.json").read_text()))
+
+
+def _front_door(doc, kind):
+    recs = sorted((r for r in doc["results"] if r["kind"] == kind),
+                  key=lambda r: r["name"])
+    return [{k: (v.replace(f"_{r['backend']}_", "_") if k == "name" else v)
+             for k, v in r.items() if k not in TIMING_FIELDS}
+            for r in recs]
+
+
+@pytest.mark.parametrize("kind", FRONT_DOOR)
+def test_front_door_records_equal_the_jax_bench(modes, kind):
+    port, jax_doc = modes
+    got, want = _front_door(port, kind), _front_door(jax_doc, kind)
+    assert want and got == want
+
+
+def test_migration_and_obs_records(modes):
+    port, jax_doc = modes
+    mig = [r for r in port["results"] if r["kind"] == "migration"]
+    jmig = [r for r in jax_doc["results"] if r["kind"] == "migration"]
+    assert len(mig) == len(jmig) == 1
+    assert (mig[0]["blob_bytes"], mig[0]["n_slots"]) == (
+        jmig[0]["blob_bytes"], jmig[0]["n_slots"])
+    assert mig[0]["snapshot_us"] > 0 and mig[0]["feed_quantum_us"] > 0
+    obs = [r for r in port["results"] if r["kind"] == "obs_overhead"]
+    assert len(obs) == 1 and obs[0]["batch"] == 8
+    assert obs[0]["bare_us_per_step"] > 0
+    args = port["metadata"]["args"]
+    assert args["async"] and args["qos"] and args["migrate"]
+    assert args["obs_overhead"] and port["metadata"]["schema"] == 2
 
 
 def test_bad_sweep_lists_exit():

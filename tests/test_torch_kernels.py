@@ -328,3 +328,56 @@ def test_cpu_runs_leave_launches_at_zero():
     tops.lif_step(v, v, decay_rate=0.125, threshold_raw=THRESH)
     tops.poisson_encode(5, torch.full((4, 9), 0.5), 3)
     assert tops.LAUNCHES == before  # the plain versions are not launches
+
+
+@pytest.mark.parametrize("source", ["spike_timestep.cu",
+                                    "spike_timestep_fused.cu"])
+def test_first_build_under_threads_compiles_once(source, tmp_path,
+                                                 monkeypatch):
+    """Eight threads that launch a kernel first (the frontend's pump
+    thread beside the main one) compile it once, into a temporary file
+    named by process and thread, and all bind the same entry point."""
+    import ctypes
+    import pathlib
+    import subprocess
+    import threading
+    import time
+
+    from repro_torch.kernels import _build
+
+    compiles, tmp_names = [], []
+
+    def fake_run(cmd, **kwargs):
+        out = cmd[cmd.index("-o") + 1]
+        tmp_names.append(out)
+        compiles.append(threading.get_ident())
+        time.sleep(0.05)                 # a slow nvcc widens the race
+        pathlib.Path(out).write_bytes(b"\x7fELF")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    class FakeLib:
+        def __getattr__(self, name):
+            return type("Fn", (), {})()
+
+    monkeypatch.setattr(_build, "_build_dir", lambda: tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda src: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: FakeLib())
+    lib = _build.CudaLibrary(_build.CSRC / source, "entry", [])
+    barrier = threading.Barrier(8)
+    got = []
+
+    def first_launch():
+        barrier.wait()
+        got.append(lib.function)
+
+    threads = [threading.Thread(target=first_launch) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(compiles) == 1
+    assert len(got) == 8 and all(fn is got[0] for fn in got)
+    assert f".{compiles[0]}.tmp" in tmp_names[0]
+    assert not list(tmp_path.glob("*.tmp"))
+    assert lib.build()[1] == ""          # the cached build is reused

@@ -7,6 +7,8 @@ chunks, or the same seed, which the port's threefry
 (:mod:`repro_torch.core.prng`) turns into the JAX package's spikes.
 """
 
+import json
+import pathlib
 import subprocess
 import sys
 
@@ -236,18 +238,24 @@ def test_port_session_run_all_matches_solo_and_is_seeded():
 
 
 def test_deploy_with_live_streams_and_frontend_raise():
+    """A deploy with a live stream is a rolling redeploy (the carry parks
+    in the session connector and the next serve restores it), and a
+    frontend whose config conflicts with the group's raises."""
+    from repro_torch.serving.frontend import FrontendConfig
+
     nets = _two_models()
     _, ts = _sessions({"A": nets["A"]}, SMALL, "reference")
-    view = ts.serve("A", n_slots=2)
+    view = ts.serve("A", n_slots=2, frontend=FrontendConfig())
     view.attach("u")
-    with pytest.raises(NotImplementedError, match="connector"):
-        ts.deploy("B", _to_port(nets["B"]))
-    with pytest.raises(NotImplementedError, match="frontend"):
-        ts.serve("A", n_slots=2, frontend=object())
-    view.detach("u")
-    ts.deploy("B", _to_port(nets["B"]))  # no live streams: fine
+    with pytest.raises(ValueError, match="one request queue"):
+        ts.serve("A", n_slots=2, frontend=FrontendConfig(queue_capacity=3))
+    ts.deploy("B", _to_port(nets["B"]))
+    assert len(ts.connector) == 1
     with pytest.raises(RuntimeError, match="stale"):
         view.attach("v")
+    view = ts.serve("A", n_slots=2)
+    assert view.slot_of("u") == 0 and len(ts.connector) == 0
+    assert view.frontend is None      # the queue died with its server
 
 
 def test_closed_loop_matches_jax():
@@ -285,6 +293,83 @@ def test_serve_snn_main_runs_on_cpu(capsys):
     assert "fuse_steps=3: 0 fused window launches" in out
 
 
+def _summaries(tmp_path, argv):
+    """The JAX launcher's and the port's --json-summary for one argv."""
+    from repro.launch import serve_snn as jserve
+
+    jserve.main([*argv, "--json-summary", str(tmp_path / "j.json")])
+    tserve.main(["--device", "cpu", *argv, "--json-summary",
+                 str(tmp_path / "t.json")])
+    return (json.loads((tmp_path / "j.json").read_text()),
+            json.loads((tmp_path / "t.json").read_text()))
+
+
+SERVE_ARGV = ["--streams", "7", "--steps-per-stream", "12", "--n-inputs",
+              "16", "--n-neurons", "24", "--n-slots", "3", "--chunk", "4"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--drain", "2"],
+                                   ["--gate", "per-example", "--drain", "1"]])
+def test_serve_snn_sync_summary_matches_jax(tmp_path, extra):
+    want, got = _summaries(tmp_path, SERVE_ARGV + extra)
+    for key in ("mode", "streams_done", "steps", "rounds", "n_slots",
+                "sparsity", "event_gate", "server", "energy"):
+        assert got[key] == want[key], key
+    assert got["meta"]["axes"] == want["meta"]["axes"]
+    assert got["meta"]["bench_schema"] == want["meta"]["bench_schema"]
+    assert got["server"]["steps"] == got["steps"] == 7 * 12
+    assert got["launches"]["spike_timestep"] == 0   # CPU: plain versions
+
+
+def test_serve_snn_async_summary_matches_jax(tmp_path):
+    argv = SERVE_ARGV + [
+        "--async", "--arrival-rate", "200", "--queue-capacity", "64",
+        "--qos", "hi=2:4,bg=0:1:2", "--qos-preempt", "--burst", "hi",
+        "--burst-rate", "1000"]
+    want, got = _summaries(tmp_path, argv)
+    for key in ("mode", "requests", "offered_rate_per_s", "policy",
+                "queue_capacity", "deadline_ms", "qos", "burst"):
+        assert got[key] == want[key], key
+    c, jc = got["frontend"]["counts"], want["frontend"]["counts"]
+    assert c["submitted"] == jc["submitted"] == 7
+    assert c["done"] == jc["done"] == 7       # room for all: none shed
+    assert got["server"]["steps"] == got["steps"] == 7 * 12
+    assert got["server"]["sops"] == want["server"]["sops"]
+
+
+def test_serve_snn_async_entry_points_run_on_cpu(tmp_path, capsys):
+    conn = tmp_path / "conn"
+    summary = tserve.main([
+        "--device", "cpu", "--backend", "cuda", "--fuse-steps", "2",
+        *SERVE_ARGV, "--async", "--arrival-rate", "500",
+        "--backpressure", "drop-oldest", "--queue-capacity", "4",
+        "--deadline-ms", "5", "--qos", "hi=1:2,bg=0:1", "--qos-preempt",
+        "--burst", "hi", "--burst-at", "0.001", "--slo-p99-ms", "1",
+        "--slo-miss-ratio", "0.5", "--slo-queue-depth", "2",
+        "--slo-window-s", "10", "--flight", str(tmp_path / "flight.json"),
+        "--connector", str(conn), "--metrics", str(tmp_path / "m.prom"),
+        "--trace", str(tmp_path / "trace.jsonl"),
+        "--profile", str(tmp_path / "prof"), "--json-summary"])
+    out = capsys.readouterr().out
+    assert summary["mode"] == "async" and summary["device"] == "cpu"
+    assert summary["frontend"]["counts"]["submitted"] == 7
+    assert '"mode": "async"' in out and "[serve-snn] qos:" in out
+    from repro_torch.obs import reconstruct
+
+    reconstruct(str(tmp_path / "trace.jsonl"))    # no lifecycle violation
+    prom = (tmp_path / "m.prom").read_text()
+    assert "snn_frontend_requests_total" in prom
+    assert (tmp_path / "prof" / "trace.json").exists()
+    assert list(conn.iterdir()) == []             # every spill resumed
+    for argv, what in ((["--async", "--qos-preempt"], "needs a --qos"),
+                       (["--drain", "1", "--async"], "sync-mode"),
+                       (["--devices", "2"], "item 9"),
+                       (["--mesh", "1x2"], "item 9"),
+                       (["--burst", "x"], "require --async")):
+        with pytest.raises(SystemExit, match=what):
+            tserve.main(["--device", "cpu", *argv])
+
+
 def test_default_device_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
@@ -319,14 +404,37 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.kernels.ref', 'repro_torch.kernels.lif_step', "
         "'repro_torch.kernels.poisson_encode', 'repro_torch.bench_schema', "
         "'repro_torch.benchmarks.common', "
-        "'repro_torch.benchmarks.kernel_bench', 'repro_torch.core.prng')\n"
+        "'repro_torch.benchmarks.kernel_bench', 'repro_torch.core.prng', "
+        "'repro_torch.serving.connector', 'repro_torch.serving.frontend', "
+        "'repro_torch.serving.qos', 'repro_torch.distributed.straggler', "
+        "'repro_torch.obs.metrics', 'repro_torch.obs.tracing', "
+        "'repro_torch.obs.timeline', 'repro_torch.obs.slo', "
+        "'repro_torch.obs.flight')\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 35
+    assert int(r.stdout.strip()) >= 45
+
+
+def test_port_sources_name_neither_jax_nor_repro():
+    """No source line of the port, nor of chip_smoke.py, imports ``jax``
+    or the JAX package, even inside a function."""
+    import re
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    pattern = re.compile(
+        r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s))")
+    files = sorted((repo / "src" / "repro_torch").rglob("*.py"))
+    files.append(repo / "chip_smoke.py")
+    assert len(files) > 45
+    bad = [f"{f.name}:{i}: {line.strip()}"
+           for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1)
+           if pattern.match(line)]
+    assert bad == []
 
 
 def test_carry_from_jax_continues_byte_equal():
