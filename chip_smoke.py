@@ -80,7 +80,21 @@ in phases that each exit non-zero on failure:
    --obs-overhead --json``. It prints the wall time of
    ``snapshot_stream``, ``attach_stream``, ``migrate_stream`` and a
    ``FileCarryConnector`` insert / select of a P = 1024 carry, async
-   against sync stream-steps/s at K 1 and 8, and the obs overhead ratio.
+   against sync stream-steps/s at K 1 and 8, and the obs overhead ratio;
+8. drives the mesh on the card, its shards sharing card 0: phase 3's
+   plan through ``AcceleratorSession(mesh=...)`` on a 2 x 2 and a 2 x 4
+   mesh, on "cuda" and "cuda-f32" x both gates x ``fuse_steps`` 1 and 8,
+   rasters and predictions byte-equal to phase 3's unsharded run, with
+   exactly dispatches x chunk steps x shards single-step launches and no
+   fused one; the single-step kernel against its plain version at the
+   shard shapes (2 x 2 and 2 x 4 shards of the slice, and a ragged shard
+   of 65 columns); a carry moved from an unsharded server into a 2 x 4
+   mesh server and back, byte-equal to phase 3; ``serve_snn --devices 4
+   --mesh 2x2 --json-summary`` against ``--devices 1`` (equal counters,
+   four times the launches) and ``kernel_bench --devices 4 --mesh 2x2
+   --streaming --json``. It prints the wall and device time of one step
+   of the 8-slot slice unsharded and on both meshes, beside the card's
+   name and power limit.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -591,11 +605,11 @@ def serve_plan(np):
 
 
 def serve_once(np, torch, session_cls, cfg, nets, backend, gate, plan,
-               fuse_steps=1):
-    """Serve the plan; returns ({uid: raster}, {uid: prediction}, session,
-    chunk dispatches issued)."""
+               fuse_steps=1, mesh=None):
+    """Serve the plan (on ``mesh`` when given); returns ({uid: raster},
+    {uid: prediction}, session, chunk dispatches issued)."""
     sess = session_cls(cfg.ACCELERATOR, backend=backend, device="cuda",
-                       fuse_steps=fuse_steps)
+                       fuse_steps=fuse_steps, mesh=mesh)
     for name, net in nets.items():
         sess.deploy(name, net)
     views = {name: sess.serve(name, n_slots=N_SLOTS, chunk_steps=CHUNK,
@@ -664,13 +678,14 @@ def phase_serve(np, torch, ops, session_cls, feedforward, cfg):
     plan = serve_plan(np)
     launches, served_steps, fused_launches = 0, 0, 0
     rates = {}  # (backend, gate, K) -> served stream-steps per second
-    refs = {}   # gate -> the reference backend's rasters (phase 7 reads)
+    refs = {}   # gate -> the reference backend's rasters (phases 7, 8)
+    ref_preds = {}  # gate -> the reference backend's predictions
     f32_bound = None
     for gate in ("batch-tile", "per-example"):
         t0 = time.perf_counter()
         ref, ref_pred, ref_sess, _ = serve_once(np, torch, session_cls, cfg,
                                                 nets, "reference", gate, plan)
-        refs[gate] = ref
+        refs[gate], ref_preds[gate] = ref, ref_pred
         log(f"served {len(ref)} streams x {STREAM_T} steps on reference "
             f"({gate}) in {time.perf_counter() - t0:.2f} s")
         spikes = sum(int(r.sum()) for r in ref.values())
@@ -721,7 +736,7 @@ def phase_serve(np, torch, ops, session_cls, feedforward, cfg):
         fused_launches += serve_fused(np, torch, ops, session_cls, cfg, nets,
                                       plan, gate, ref, ref_pred, rates)
     log(f"f32 worst-case block sum {f32_bound} (< 2^24 = {1 << 24})")
-    return launches, served_steps, fused_launches, rates, refs
+    return launches, served_steps, fused_launches, rates, refs, ref_preds
 
 
 def serve_fused(np, torch, ops, session_cls, cfg, nets, plan, gate, ref,
@@ -791,7 +806,7 @@ def phase_launcher(torch, ops):
         log(f"serve_snn --fuse-steps {K}: {summary['steps_per_s']:.1f} "
             f"steps/s, {summary['steps']} stream-steps, {launched[kernel]} "
             f"{kernel} launches, chunk dispatch p50 "
-            f"{summary['dispatch_ms']['p50']:.2f} ms")
+            f"{summary['straggler']['dispatch_ms']['p50']:.2f} ms")
         runs.append(summary)
     return runs
 
@@ -1912,6 +1927,256 @@ def phase_front_door_entry_points(torch, ops):
 
 
 # --------------------------------------------------------------------------
+MESH_SHAPES = ((2, 2), (2, 4))
+
+
+def card_mesh(torch, make_spike_mesh, kn, kb):
+    """A (kn, kb) mesh whose shards all share card 0."""
+    return make_spike_mesh(kn, kb, devices=[torch.device("cuda", 0)]
+                           * (kn * kb))
+
+
+def phase_mesh_serve(np, torch, ops, session_cls, feedforward, cfg, refs,
+                     ref_preds):
+    """Phase 3's plan through ``AcceleratorSession(mesh=...)`` on a 2 x 2
+    and a 2 x 4 mesh of card 0, on "cuda" / "cuda-f32" x both gates x
+    ``fuse_steps`` 1 / 8: rasters and predictions byte-equal to phase 3's
+    unsharded run, every shard launching the single-step kernel once a
+    step (launches = chunk dispatches x chunk steps x shards) and no fused
+    window. Returns (single-step launches, {what: stream-steps/s})."""
+    from repro_torch.distributed.spike_mesh import (MeshSpikeEngine,
+                                                    make_spike_mesh)
+
+    nets = mnist_nets(np, feedforward, cfg)
+    plan = serve_plan(np)
+    total, rates = 0, {}
+    for kn, kb in MESH_SHAPES:
+        mesh = card_mesh(torch, make_spike_mesh, kn, kb)
+        for gate in ("batch-tile", "per-example"):
+            for backend in ("cuda", "cuda-f32"):
+                for K in (1, 8):
+                    what = f"mesh {kn}x{kb} {backend}/{gate}/K={K}"
+                    reset_launches(ops)  # just before the main path
+                    t0 = time.perf_counter()
+                    got, pred, sess, dispatches = serve_once(
+                        np, torch, session_cls, cfg, nets, backend, gate,
+                        plan, fuse_steps=K, mesh=mesh)
+                    torch.cuda.synchronize()
+                    n = ops.LAUNCHES["spike_timestep"]  # just after it
+                    n_fused = ops.LAUNCHES["spike_timestep_fused"]
+                    dt = time.perf_counter() - t0
+                    server = next(iter(sess._stream_servers.values()))
+                    eng = server.engine
+                    check(isinstance(eng, MeshSpikeEngine)
+                          and eng.mesh == mesh and eng.fuse_steps == K
+                          and eng.gate == gate,
+                          f"{what}: the served engine is not the mesh's")
+                    want = dispatches * CHUNK * kn * kb
+                    check(n == want and n > 0,
+                          f"{what}: {n} single-step launches, expected "
+                          f"{want} (dispatches x steps x shards)")
+                    check(n_fused == 0,
+                          f"{what}: {n_fused} fused launches under a mesh")
+                    check(all(np.array_equal(got[u], refs[gate][u])
+                              for u in refs[gate]),
+                          f"{what}: rasters != phase 3's unsharded run")
+                    check(pred == ref_preds[gate],
+                          f"{what}: predictions != phase 3's")
+                    total += n
+                    rates[what] = server.total_steps / dt
+                    log(f"{what}: rasters and predictions byte-equal to "
+                        f"phase 3 for {len(got)} streams; {n} single-step "
+                        f"launches = {dispatches} dispatches x {CHUNK} "
+                        f"steps x {kn * kb} shards, 0 fused; "
+                        f"{server.total_steps} stream-steps in {dt:.2f} s")
+    return total, rates
+
+
+def phase_mesh_kernel_shapes(torch, ts, ops) -> int:
+    """The single-step kernel against its plain version at the shapes a
+    mesh shard gives it: a 2 x 2 shard of the slice (4 rows, 2592 sources,
+    512 columns), a 2 x 4 shard (2 rows), and a ragged shard (3 of 5 rows,
+    200 + 130 sources, 65 columns, padded to 128 on its own)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    n_cases, worst = 0, 0
+    for B, S, P in ((4, 2592, 512), (2, 2592, 512), (3, 330, 65)):
+        for use_f32 in (False, True):
+            hi = (1 << 16) if use_f32 else (1 << 31)
+            W = torch.randint(-hi, hi, (S, P), generator=gen, device="cuda",
+                              dtype=torch.int64).to(torch.int32)
+            v = torch.randint(-(1 << 31), 1 << 31, (B, P), generator=gen,
+                              device="cuda", dtype=torch.int64)
+            v = v.to(torch.int32)
+            for density in (0.02, 0.25):
+                src = (torch.rand((B, S), generator=gen, device="cuda")
+                       < density).to(torch.int32)
+                for block_batch in (8, 1):
+                    act, sp, wp, vp = padded_operands(torch, ops, src, W, v,
+                                                      block_batch)
+                    for reset in ("zero", "subtract", "hold"):
+                        kw = dict(threshold_raw=1 << 16, reset_mode=reset,
+                                  decay_kind="shift", decay_rate=0.25,
+                                  decay_raw=0, use_f32=use_f32,
+                                  block_batch=block_batch)
+                        got = ts.spike_timestep_cuda(act, sp, wp, vp, **kw)
+                        want = ts.spike_timestep_plain(act, sp, wp, vp, **kw)
+                        torch.cuda.synchronize()
+                        for g, w in zip(got, want):
+                            err = int((g.to(torch.int64)
+                                       - w.to(torch.int64)).abs().max())
+                            worst = max(worst, err)
+                            check(torch.equal(g, w),
+                                  f"kernel != plain at shard shape B,S,P="
+                                  f"{B},{S},{P} f32={use_f32} density="
+                                  f"{density} block_batch={block_batch} "
+                                  f"reset={reset}: max |diff| {err}")
+                        n_cases += 1
+    log(f"kernel == plain at the mesh shard shapes in all {n_cases} cases "
+        f"(3 shard shapes incl. a 65-column ragged one x 2 modes x 2 "
+        f"activities x 2 gates x 3 resets); max |diff| {worst}")
+    return worst
+
+
+def phase_mesh_carries(np, torch, session_cls, feedforward, cfg, refs):
+    """A carry migrated into and out of a mesh server: stream 0 of phase
+    3's plan starts on an unsharded server, moves to a 2 x 4 mesh server
+    at step 40 and back at step 70; the stitched raster equals phase 3's."""
+    from repro_torch.distributed.spike_mesh import make_spike_mesh
+    from repro_torch.serving.connector import InMemoryCarryConnector
+
+    nets = mnist_nets(np, feedforward, cfg)
+    streams, _ = serve_plan(np)
+    name, raster, _ = streams[0]
+    views = []
+    for mesh in (None, card_mesh(torch, make_spike_mesh, 2, 4)):
+        sess = session_cls(cfg.ACCELERATOR, backend="cuda", device="cuda",
+                           mesh=mesh)
+        for n, net in nets.items():
+            sess.deploy(n, net)
+        views.append(sess.serve(name, n_slots=N_SLOTS, chunk_steps=CHUNK))
+    plain, meshed = views
+    conn = InMemoryCarryConnector()
+    for v in views:  # occupy a few slots, so the carry lands mid-batch
+        for i in range(5):
+            v.attach(f"pad{i}")
+    plain.attach(0)
+    pieces = [plain.feed(0, raster[:40])["spikes"]]
+    plain.server.detach_stream(0, conn)
+    meshed.server.attach_stream(conn, 0)
+    slot = meshed.slot_of(0)
+    pieces.append(meshed.feed(0, raster[40:70])["spikes"])
+    meshed.server.detach_stream(0, conn)
+    plain.server.attach_stream(conn, 0)
+    pieces.append(plain.feed(0, raster[70:])["spikes"])
+    got = np.concatenate(pieces, axis=0)
+    check(np.array_equal(got, refs["batch-tile"][0]),
+          "a carry moved into and out of a 2x4 mesh server != phase 3")
+    log(f"carry of stream 0 moved plain -> mesh 2x4 (slot {slot} of "
+        f"{N_SLOTS}, batch shard {slot // (N_SLOTS // 4)}) -> plain: raster "
+        f"byte-equal to phase 3 ({int(got.sum())} spikes)")
+
+
+def phase_mesh_entry_points(torch, ops):
+    """``serve_snn --devices 4 --mesh 2x2`` against ``--devices 1`` (same
+    counters and rasters' statistics, four times the single-step
+    launches, no fused one), then ``kernel_bench --devices 4 --mesh 2x2
+    --streaming --json``. Returns the launch counts of the mesh runs."""
+    import contextlib
+    import io
+
+    from repro_torch.benchmarks import kernel_bench
+    from repro_torch.launch import serve_snn
+
+    launched = {name: 0 for name in ops.LAUNCHES}
+    base = ["--device", "cuda", "--backend", "cuda", "--models", "2",
+            "--n-inputs", "784", "--n-neurons", "266",
+            "--steps-per-stream", "100", "--seed", "0"]
+    summaries = {}
+    for devices in ((), ("--devices", "4", "--mesh", "2x2")):
+        reset_launches(ops)
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            summary = serve_snn.main(base + list(devices) + ["--json-summary"])
+        torch.cuda.synchronize()
+        check(summary["launches"] == dict(ops.LAUNCHES),
+              "serve_snn's launch counts disagree with the kernels'")
+        summaries[len(devices)] = (summary, out.getvalue())
+        if devices:
+            for name, n in ops.LAUNCHES.items():
+                launched[name] += n
+    one, (many, text) = summaries[0][0], summaries[4]
+    for key in ("streams_done", "steps", "rounds", "sparsity", "event_gate",
+                "server", "energy"):
+        check(many[key] == one[key], f"serve_snn --devices 4 {key} != "
+                                     f"--devices 1")
+    check(many["mesh"] == {"neuron": 2, "batch": 2, "shards": 4,
+                           "physical_devices": ["cuda:0"]},
+          f"serve_snn mesh summary {many['mesh']}")
+    check("backed by 1 physical" in text, "serve_snn did not state the "
+                                          "physical devices")
+    n1, n4 = (s["launches"]["spike_timestep"] for s in (one, many))
+    check(n4 == 4 * n1 > 0 and many["launches"]["spike_timestep_fused"] == 0,
+          f"serve_snn --devices 4: {n4} launches vs {n1} unsharded")
+    rep = many["straggler"]
+    check(rep["n_shards"] == 2 and len(rep["flag_counts"]) == 2,
+          f"serve_snn straggler watch {rep}")
+    log(f"serve_snn --devices 4 --mesh 2x2: counters equal to --devices 1, "
+        f"{n4} single-step launches = 4 x {n1}; {many['steps_per_s']:.1f} "
+        f"vs {one['steps_per_s']:.1f} stream-steps/s; dispatch p50 "
+        f"{rep['dispatch_ms']['p50']:.2f} vs "
+        f"{one['straggler']['dispatch_ms']['p50']:.2f} ms; watch flags "
+        f"{rep['flag_counts']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches(ops)
+        kernel_bench.main(["--device", "cuda", "--backend", "cuda",
+                           "--devices", "4", "--mesh", "2x2", "--streaming",
+                           "--json", str(pathlib.Path(tmp) / "b.json")])
+        torch.cuda.synchronize()
+        for name, n in ops.LAUNCHES.items():
+            launched[name] += n
+        doc = json.loads((pathlib.Path(tmp) / "b.json").read_text())
+    d4 = {r["name"]: r for r in doc["results"] if r["devices"] == 4}
+    check(set(d4) == {"engine/timestep_cuda_d4",
+                      "streaming/batch_scan_cuda_d4",
+                      "streaming/feed_cuda_occ1_d4",
+                      "streaming/feed_cuda_occ0.25_d4"},
+          f"kernel_bench --devices 4 records {sorted(d4)}")
+    check(ops.LAUNCHES["spike_timestep"] > 0, "kernel_bench --devices 4 "
+                                              "launched no kernel")
+    log("kernel_bench --devices 4 --mesh 2x2: "
+        + ", ".join(f"{n} {r['us_per_call']:.1f} us" for n, r in
+                    sorted(d4.items())))
+    return launched, {n: r["us_per_call"] for n, r in d4.items()}
+
+
+def phase_mesh_times(np, torch, session_cls, feedforward, cfg):
+    """The wall and device time of one step of the slice's 8-slot batch
+    (``step_chunk`` of one step, "cuda", batch-tile) unsharded and on the
+    2 x 2 and 2 x 4 meshes of card 0."""
+    from repro_torch.distributed.spike_mesh import make_spike_mesh
+
+    nets = mnist_nets(np, feedforward, cfg)
+    sess = session_cls(cfg.ACCELERATOR, backend="cuda", device="cuda")
+    for name, net in nets.items():
+        sess.deploy(name, net)
+    eng = sess._fused_engine(list(sess.models.values()))
+    rng = np.random.default_rng(5)
+    ext = torch.from_numpy((rng.random((1, N_SLOTS, eng.n_inputs)) < 0.1)
+                           .astype(np.int32)).cuda()
+    times = {}
+    for shape in ((1, 1),) + MESH_SHAPES:
+        e = eng if shape == (1, 1) else eng.to_mesh(
+            card_mesh(torch, make_spike_mesh, *shape))
+        carry = e.init_carry(N_SLOTS)
+        for _ in range(20):  # a warm carry: the slice has been stepping
+            carry, _ = e.step_chunk(carry, ext)
+        what = ("unsharded" if shape == (1, 1)
+                else f"mesh {shape[0]}x{shape[1]}")
+        times[what] = device_and_wall_us(
+            torch, lambda e=e, c=carry: e.step_chunk(c, ext), 50)
+    return times
+
+
+# --------------------------------------------------------------------------
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -1961,8 +2226,8 @@ def main() -> None:
                             cfg)
 
     log("phase 3: the serving slice end to end, unfused and fused")
-    launches, served_steps, fused_launches, rates, refs = phase_serve(
-        np, torch, ops, AcceleratorSession, feedforward, cfg)
+    launches, served_steps, fused_launches, rates, refs, ref_preds = \
+        phase_serve(np, torch, ops, AcceleratorSession, feedforward, cfg)
     for (backend, gate, K), rate in sorted(rates.items()):
         log(f"served {backend} ({gate}) fuse_steps={K}: {rate:.1f} "
             f"stream-steps/s")
@@ -1995,6 +2260,16 @@ def main() -> None:
         check(front_launches[name] > 0 and entry_launches[name] > 0,
               f"phase 7 launched no {name} kernel")
 
+    log("phase 8: the mesh on the card")
+    mesh_launches, mesh_rates = phase_mesh_serve(
+        np, torch, ops, AcceleratorSession, feedforward, cfg, refs,
+        ref_preds)
+    worst_shard = phase_mesh_kernel_shapes(torch, ts, ops)
+    phase_mesh_carries(np, torch, AcceleratorSession, feedforward, cfg, refs)
+    mesh_entry_launches, mesh_bench = phase_mesh_entry_points(torch, ops)
+    mesh_times = phase_mesh_times(np, torch, AcceleratorSession, feedforward,
+                                  cfg)
+
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     for what, (dev_us, wall_us, busy_us) in [*event_times.items(),
                                              ("Cerebra-S step", s_step)]:
@@ -2010,6 +2285,13 @@ def main() -> None:
                 f"{front_rates[f'async FIFO {backend}/K={K}']:.1f} vs sync "
                 f"{rates[(backend, 'batch-tile', K)]:.1f} stream-steps/s "
                 f"(phase 3) ({card})")
+    for what, (dev_us, wall_us, busy_us) in mesh_times.items():
+        log(f"time one step of the 8-slot slice, {what}: device "
+            f"{dev_us:.1f} us between events, wall {wall_us:.1f} us, device "
+            f"busy {busy_us:.1f} us ({100 * busy_us / wall_us:.1f} % of "
+            f"wall) ({card})")
+    for what, rate in mesh_rates.items():
+        log(f"rate {what}: {rate:.1f} stream-steps/s ({card})")
     log(f"obs overhead (kernel_bench --obs-overhead, cuda): "
         f"{obs_rec['overhead_frac']:+.4f} (instrumented "
         f"{obs_rec['instrumented_us_per_step']} vs bare "
@@ -2026,7 +2308,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/spike_timestep.cu",
         "replaces": "src/repro/kernels/spike_timestep.py:50",
         "launches": launches,
-        "max_abs_err": max(worst, worst_stress, main_v["max_abs_err"]),
+        "max_abs_err": max(worst, worst_stress, worst_shard,
+                           main_v["max_abs_err"]),
         "ms": main_v["ms"],
         "plain_ms": main_v["plain_ms"],
         "bound_ms": main_v["bound_ms"],
@@ -2038,6 +2321,12 @@ def main() -> None:
         "cerebra_s_launches": s_launches["spike_timestep"],
         "front_door_launches": front_launches["spike_timestep"],
         "front_door_entry_launches": entry_launches["spike_timestep"],
+        "mesh_launches": mesh_launches,
+        "mesh_entry_launches": mesh_entry_launches["spike_timestep"],
+        "mesh_stream_steps_per_s": mesh_rates,
+        "mesh_step_us": {what: {"device": d, "wall": w, "busy": b}
+                         for what, (d, w, b) in mesh_times.items()},
+        "mesh_bench_us": mesh_bench,
         "card": card,
     }, {
         "name": "spike_timestep_fused",

@@ -40,10 +40,15 @@ versions on the host. Sections:
   against ``ref.spike_timestep_ref``, the active source blocks, and
   ``ops.lif_step`` and ``ops.poisson_encode`` (always).
 
+``--devices N`` (optionally with ``--mesh KNxKB``) adds the scale-out
+axis: the engine-scan and streaming sections also run on a
+``MeshSpikeEngine`` over N logical devices (``ensure_host_devices``: host
+entries on the CPU, the visible cards round-robin on ``cuda``), as
+``engine/timestep_*_d{N}``, ``streaming/batch_scan_*_d{N}`` and
+``streaming/feed_*_d{N}``.
+
 ``--json PATH`` writes schema-v2 records with the card's name and power
-limit in the metadata. ``--devices N > 1`` and ``--mesh`` need the mesh,
-which is not ported yet, and raise ``SystemExit`` naming its ROADMAP
-item.
+limit in the metadata.
 """
 
 from __future__ import annotations
@@ -60,6 +65,9 @@ from repro_torch.benchmarks.common import emit, time_call
 from repro_torch.core.engine import (BACKENDS, GATES, DecaySpec, SpikeEngine,
                                      sources_raster)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.spike_mesh import (ensure_host_devices,
+                                                make_spike_mesh,
+                                                parse_mesh_spec)
 from repro_torch.events import trace
 from repro_torch.kernels import ops, ref
 from repro_torch.obs import MetricsRegistry, SpanTracer
@@ -93,26 +101,33 @@ def _engine(W, *, device, **kw) -> SpikeEngine:
 
 
 def bench_engine_backends(backends, *, batch: int, activity: float,
-                          steps: int = 4, device) -> None:
-    """Per-backend engine-scan throughput at the 1024-neuron scale."""
+                          steps: int = 4, device, mesh=None) -> None:
+    """Per-backend engine-scan throughput at the 1024-neuron scale, on one
+    device or on ``mesh``."""
+    devices = 1 if mesh is None else mesh.size
     rng = np.random.default_rng(0)
     W = _weights(rng, device)
     ext = _spikes(rng.random((steps, batch, N_IN)) < activity, device)
     for backend in backends:
         engine = _engine(W, backend=backend, device=device)
+        if mesh is not None:
+            engine = engine.to_mesh(mesh)
         t_run = time_call(lambda e=engine: e.run(ext)["spikes"])
-        emit(f"engine/timestep_{backend}_d1", t_run / steps,
+        emit(f"engine/timestep_{backend}_d{devices}", t_run / steps,
              f"us/timestep B={batch} S={N_IN + P} P={P} "
-             f"activity={activity} T={steps} devices=1",
+             f"activity={activity} T={steps} devices={devices}",
              kind="engine_scan", backend=backend, gate=engine.gate,
-             batch=batch, activity=activity, devices=1, per_timestep=True)
+             batch=batch, activity=activity, devices=devices,
+             per_timestep=True)
 
 
 def bench_streaming(backends, *, n_slots: int, activity: float,
-                    chunk_steps: int = 8, rounds: int = 3, device) -> None:
+                    chunk_steps: int = 8, rounds: int = 3, device,
+                    mesh=None) -> None:
     """The serving axis: masked slot-batch chunk step (SpikeServer.feed)
     vs the one-shot batch scan on the same raster, plus the cost of a
-    partially occupied slot batch."""
+    partially occupied slot batch; on one device or on ``mesh``."""
+    devices = 1 if mesh is None else mesh.size
     rng = np.random.default_rng(0)
     W = _weights(rng, device)
     T = chunk_steps * rounds
@@ -121,11 +136,15 @@ def bench_streaming(backends, *, n_slots: int, activity: float,
     batch = _spikes(np.stack(rasters, axis=1), device)  # (T, n_slots, n_in)
     for backend in backends:
         engine = _engine(W, backend=backend, device=device)
+        if mesh is not None:
+            engine = engine.to_mesh(mesh)
         t_batch = time_call(lambda e=engine: e.run(batch)["spikes"])
-        emit(f"streaming/batch_scan_{backend}_d1", t_batch / T,
-             f"us/timestep B={n_slots} T={T} devices=1 (one-shot run)",
+        emit(f"streaming/batch_scan_{backend}_d{devices}", t_batch / T,
+             f"us/timestep B={n_slots} T={T} devices={devices} "
+             f"(one-shot run)",
              kind="streaming_batch_scan", backend=backend, gate=engine.gate,
-             batch=n_slots, activity=activity, devices=1, per_timestep=True)
+             batch=n_slots, activity=activity, devices=devices,
+             per_timestep=True)
         for occupancy in (1.0, 0.25):
             n_live = max(1, int(round(occupancy * n_slots)))
 
@@ -139,13 +158,14 @@ def bench_streaming(backends, *, n_slots: int, activity: float,
                 return srv.total_steps
 
             t_srv = time_call(serve)
-            emit(f"streaming/feed_{backend}_occ{occupancy:g}_d1", t_srv / T,
+            emit(f"streaming/feed_{backend}_occ{occupancy:g}_d{devices}",
+                 t_srv / T,
                  f"us/timestep {n_live}/{n_slots} slots live, "
-                 f"chunk={chunk_steps} devices=1 "
+                 f"chunk={chunk_steps} devices={devices} "
                  f"(masked step, per-chunk host hop)",
                  kind="streaming_feed", backend=backend, gate=engine.gate,
                  batch=n_slots, occupancy=occupancy, activity=activity,
-                 devices=1, per_timestep=True)
+                 devices=devices, per_timestep=True)
 
 
 def bench_event_gating(backends, sparsities, *, batch: int,
@@ -624,9 +644,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "bare vs instrumented (5%% budget enforced on the "
                          "reference backend)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="N > 1 is not ported yet (ROADMAP Queue 1 item 9)")
+                    help="also run the engine/streaming benches on a mesh "
+                         "over N logical devices (host entries with "
+                         "--device cpu; the visible cards round-robin on "
+                         "cuda)")
     ap.add_argument("--mesh", default=None, metavar="KNxKB",
-                    help="not ported yet (ROADMAP Queue 1 item 9)")
+                    help="neuron x batch mesh split for --devices "
+                         "(default: 2 x N/2 when N allows)")
     return ap
 
 
@@ -640,16 +664,26 @@ def _parse_list(text: str, kind, flag: str) -> list:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise SystemExit("--mesh needs the mesh, ROADMAP Queue 1 item 9, "
-                         "which is not ported to repro_torch yet")
-    if args.devices != 1:
-        raise SystemExit("--devices N > 1 needs the mesh, ROADMAP Queue 1 "
-                         "item 9, which is not ported to repro_torch yet")
+    if args.mesh and args.devices <= 1:
+        raise SystemExit("--mesh requires --devices N (N > 1); without it "
+                         "the sharded benches would silently not run")
     device = resolve_device(args.device)
     backends = list(BACKENDS) if args.backend == "all" else [args.backend]
     if args.json:
         common.start_recording()
+
+    mesh = None
+    if args.devices > 1:
+        try:
+            kn, kb = parse_mesh_spec(args.devices, args.mesh)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        mesh = make_spike_mesh(neuron=kn, batch=kb,
+                               devices=ensure_host_devices(args.devices,
+                                                           device))
+        print(f"[bench] mesh axis: {kn} neuron shards x {kb} batch shards "
+              f"({args.devices} devices on "
+              f"{len(mesh.physical_devices)} physical)", flush=True)
 
     sparsities = None
     if args.sparsity:
@@ -667,9 +701,16 @@ def main(argv=None) -> None:
                          device=device)
     bench_engine_backends(backends, batch=args.batch,
                           activity=args.activity, device=device)
+    if mesh is not None:
+        bench_engine_backends(backends, batch=args.batch,
+                              activity=args.activity, device=device,
+                              mesh=mesh)
     if args.streaming:
         bench_streaming(backends, n_slots=args.batch,
                         activity=args.activity, device=device)
+        if mesh is not None:
+            bench_streaming(backends, n_slots=args.batch,
+                            activity=args.activity, device=device, mesh=mesh)
     if args.async_mode:
         bench_async_frontend(backends, activity=args.activity,
                              device=device)
@@ -689,7 +730,8 @@ def main(argv=None) -> None:
                   "streaming": args.streaming, "async": args.async_mode,
                   "qos": args.qos, "sparsity": args.sparsity,
                   "fuse_steps": args.fuse_steps, "migrate": args.migrate,
-                  "obs_overhead": args.obs_overhead})
+                  "obs_overhead": args.obs_overhead,
+                  "devices": args.devices, "mesh": args.mesh})
 
 
 if __name__ == "__main__":

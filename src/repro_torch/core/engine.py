@@ -228,8 +228,12 @@ class SpikeEngine:
         return self if dev == self.device else self._rehost(device=dev)
 
     def to_mesh(self, mesh):
-        raise NotImplementedError(
-            "mesh scale-out is not ported yet (ROADMAP Queue 1 item 9)")
+        """Drop-in scale-out: this program re-hosted on a ``(neuron,
+        batch)`` mesh (:class:`repro_torch.distributed.spike_mesh.
+        MeshSpikeEngine`), with byte-identical ``run`` / ``step_chunk``."""
+        from repro_torch.distributed.spike_mesh import MeshSpikeEngine
+
+        return MeshSpikeEngine.from_engine(self, mesh)
 
     # ------------------------------------------------------------------
     def init_carry(self, batch: int) -> dict:
@@ -241,18 +245,33 @@ class SpikeEngine:
                                   device=self.device),
         }
 
-    def _step(self, carry: dict, ext_t: torch.Tensor):
-        """One fused timestep for a batch of external spike vectors."""
+    def carry_rows(self, carry, slot: int):
+        """One slot's ``(v, spikes)`` rows of a slot-batch carry."""
+        return carry["v"][slot], carry["spikes"][slot]
+
+    def set_carry_rows(self, carry, slot: int, v, spikes) -> None:
+        """Overwrite one slot's carry rows in place."""
+        carry["v"][slot] = v
+        carry["spikes"][slot] = spikes
+
+    def _step(self, carry: dict, ext_t: torch.Tensor, weights=None):
+        """One fused timestep for a batch of external spike vectors.
+
+        ``weights`` defaults to this engine's image (padded for the
+        kernels); a mesh shard passes its own column slice."""
         sources = torch.cat([ext_t.to(torch.int32), carry["spikes"]], dim=-1)
         if self._mode is None:
-            syn = exact_int32_matmul(sources, self.weights_raw)
+            syn = exact_int32_matmul(
+                sources, self.weights_raw if weights is None else weights)
             v_new = fxp.wrap_int32(self.decay.apply(carry["v"]).to(
                 torch.int64) + syn.to(torch.int64))
             v_out, spikes = fire_reset(v_new, self.threshold_raw,
                                        self.reset_mode)
         else:
             v_out, spikes = ops.spike_timestep(
-                sources, self._kernel_weights, carry["v"],
+                sources,
+                self._kernel_weights if weights is None else weights,
+                carry["v"],
                 decay_kind=self.decay.kind, decay_rate=self.decay.rate,
                 decay_raw=self.decay.raw, threshold_raw=self.threshold_raw,
                 reset_mode=self.reset_mode, use_f32=(self._mode == "f32"),
@@ -278,28 +297,36 @@ class SpikeEngine:
         if ext.ndim != 3 or ext.shape[2] != self.n_inputs:
             raise ValueError(f"ext must be (T, B, {self.n_inputs}), got "
                              f"{tuple(ext.shape)}")
-        if active is None:
-            active = torch.ones(ext.shape[:2], dtype=torch.int32,
-                                device=self.device)
-        active = _as_int32(active, self.device)
-        if active.shape != ext.shape[:2]:
-            raise ValueError(f"active mask must be {tuple(ext.shape[:2])}, "
-                             f"got {tuple(active.shape)}")
+        if active is not None:
+            active = _as_int32(active, self.device)
+            if active.shape != ext.shape[:2]:
+                raise ValueError(f"active mask must be "
+                                 f"{tuple(ext.shape[:2])}, got "
+                                 f"{tuple(active.shape)}")
+        return self._chunk(carry, ext, active)
+
+    def _chunk(self, carry, ext: torch.Tensor, active):
+        """The scan behind :meth:`step_chunk` and :meth:`run`: ``active``
+        None means every slot steps every step."""
         if self._use_fused:
+            if active is None:
+                active = torch.ones(ext.shape[:2], dtype=torch.int32,
+                                    device=self.device)
             return self._fused_scan(carry, ext, active)
         return self._masked_chunk_scan(carry, ext, active)
 
-    def _masked_chunk_scan(self, carry: dict, ext: torch.Tensor,
-                           active: torch.Tensor):
+    def _masked_chunk_scan(self, carry: dict, ext: torch.Tensor, active):
         """Advance where active; keep the carry (and emit zero spikes)
         where not. The paused-stream contract of the JAX twin."""
         T, B = ext.shape[0], ext.shape[1]
         raster = torch.empty((T, B, self.n_phys), dtype=torch.int32,
                              device=self.device)
-        keep_all = active != 0
         for t in range(T):
             new, spikes = self._step(carry, ext[t])
-            keep = keep_all[t][:, None]
+            if active is None:
+                carry, raster[t] = new, spikes
+                continue
+            keep = active[t][:, None] != 0
             carry = {
                 "v": torch.where(keep, new["v"], carry["v"]),
                 "spikes": torch.where(keep, new["spikes"], carry["spikes"]),
@@ -372,16 +399,8 @@ class SpikeEngine:
         if ext.ndim != 3 or ext.shape[2] != self.n_inputs:
             raise ValueError(f"ext_spikes must be (T, B, {self.n_inputs}), "
                              f"got {tuple(ext.shape)}")
-        carry = self.init_carry(ext.shape[1])
-        if self._use_fused:
-            active = torch.ones(ext.shape[:2], dtype=torch.int32,
-                                device=self.device)
-            carry, raster = self._fused_scan(carry, ext, active)
-        else:
-            raster = torch.empty((ext.shape[0], ext.shape[1], self.n_phys),
-                                 dtype=torch.int32, device=self.device)
-            for t in range(ext.shape[0]):
-                carry, raster[t] = self._step(carry, ext[t])
+        carry, raster = self._chunk(self.init_carry(ext.shape[1]), ext,
+                                    None)
         out = {"spikes": raster, "v_final": carry["v"]}
         if events_capacity is not None:
             out["events"] = dense_to_aer(raster, events_capacity,

@@ -7,7 +7,7 @@ pass over the union SRAM image, and hands out streaming views
 configuration, optionally behind one async frontend per server. A deploy
 while streams are live is a rolling redeploy: their carries park in the
 session's stream-state connector and the next ``serve`` restores them.
-The mesh is not ported yet.
+With a mesh, the fused engines run sharded over it.
 """
 
 from __future__ import annotations
@@ -46,11 +46,16 @@ class AcceleratorSession:
     :class:`~repro_torch.serving.connector.InMemoryCarryConnector`) parks
     in-flight carries across a redeploy and backs the frontends' spill;
     ``metrics`` / ``tracer`` are threaded into every server, frontend and
-    connector the session builds.
+    connector the session builds. ``mesh`` (a
+    :class:`~repro_torch.distributed.spike_mesh.SpikeMesh`, see
+    ``make_spike_mesh``) scales the fused paths out: ``run_all`` and the
+    servers behind :meth:`serve` step a mesh-sharded engine, byte-identical
+    to the single-device session; encoding and solo :meth:`run` stay on
+    ``device``.
     """
 
     def __init__(self, config: cerebra_h.CerebraHConfig | None = None,
-                 backend: str = "reference", device="cuda",
+                 backend: str = "reference", device="cuda", mesh=None,
                  fuse_steps: int = 1, connector=None, metrics=None,
                  tracer=None):
         from repro_torch.serving.connector import InMemoryCarryConnector
@@ -58,6 +63,7 @@ class AcceleratorSession:
         self.config = config or cerebra_h.CerebraHConfig()
         self.backend = backend
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.fuse_steps = int(fuse_steps)
         self.metrics = metrics
         self.tracer = tracer
@@ -73,7 +79,7 @@ class AcceleratorSession:
         self.models: dict[str, DeployedModel] = {}
         self._next_cluster = 0
         self._next_input = 0
-        # {(model names, lif signature, backend, K): SpikeEngine}
+        # {(model names, lif signature, backend, mesh, K): SpikeEngine}
         self._fused_engines: dict = {}
         # {(group names, sig, backend, K, slots, chunk, gate): SpikeServer}
         self._stream_servers: dict = {}
@@ -192,7 +198,7 @@ class AcceleratorSession:
         external sources concatenated in deployment order, recurrent rows
         summed (disjoint cluster ranges cannot overlap)."""
         sig = self._lif_signature(members[0].program)
-        key = (tuple(m.name for m in members), sig, self.backend,
+        key = (tuple(m.name for m in members), sig, self.backend, self.mesh,
                self.fuse_steps)
         engine = self._fused_engines.get(key)
         if engine is not None:
@@ -212,6 +218,8 @@ class AcceleratorSession:
                              threshold_raw=threshold_raw,
                              reset_mode=reset_mode, backend=self.backend,
                              fuse_steps=self.fuse_steps, device=self.device)
+        if self.mesh is not None:
+            engine = engine.to_mesh(self.mesh)
         self._fused_engines[key] = engine
         return engine
 

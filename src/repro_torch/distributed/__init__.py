@@ -1,2 +1,3 @@
-"""Scale-out helpers of the port: straggler detection and shard
-rebalancing (the mesh itself is not ported yet)."""
+"""Scale-out of the port: the spike mesh (one controller over a grid of
+devices), its partition rules, straggler detection and shard
+rebalancing."""

@@ -18,8 +18,17 @@ session into the server, frontend and connector; ``--metrics``,
 ``--trace``, ``--flight``, ``--profile`` and ``--json-summary`` export
 them. The summary also reports the kernel launches of the run
 (``--fuse-steps K`` serves K-step fused windows, one fused kernel launch
-each). ``--devices N > 1`` and ``--mesh`` need the mesh, which is not
-ported yet, and raise.
+each).
+
+``--devices N`` (with optional ``--mesh KNxKB``) runs the fused server
+mesh-sharded (``AcceleratorSession(mesh=...)``) over N logical devices
+from ``ensure_host_devices(N, --device)``: N host entries on the CPU, the
+visible cards round-robin on ``cuda`` (shards share a card when N exceeds
+the card count; the summary says how many physical devices back the N
+shards). Outputs are byte-identical. A :class:`ShardLoadWatch` attributes
+each chunk dispatch's time to the batch shards by their live-slot load;
+persistently flagged shards get a slot-rebalance suggestion, and their
+streams are migrated once onto donor shards (``rebalance_streams``).
 """
 
 from __future__ import annotations
@@ -43,12 +52,19 @@ from repro_torch.core.engine import BACKENDS, GATES, sources_raster
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.network import SNNetwork
 from repro_torch.core.session import AcceleratorSession
+from repro_torch.distributed.spike_mesh import (ensure_host_devices,
+                                                make_spike_mesh,
+                                                parse_mesh_spec)
+from repro_torch.distributed.straggler import (StragglerDetector,
+                                               observe_from_registry,
+                                               rebalance_shards)
 from repro_torch.events.trace import block_traffic
 from repro_torch.kernels import ops
 from repro_torch.obs import (FlightRecorder, MetricsRegistry, SLObjective,
                              SLOWatchdog, SpanTracer, set_registry)
 from repro_torch.obs.tracing import profile_trace
-from repro_torch.serving.connector import FileCarryConnector
+from repro_torch.serving.connector import (FileCarryConnector,
+                                           rebalance_streams)
 from repro_torch.serving.frontend import BACKPRESSURE, FrontendConfig
 from repro_torch.serving.qos import QoSClass, QoSPolicy
 
@@ -63,6 +79,95 @@ def make_net(rng, n_in: int, n_neurons: int, *, density: float = 0.25,
         weights=W.astype(np.float32),
         params=LIFParams(decay_rate=0.25, threshold=1.0, reset_mode="zero"),
         output_slice=(n_neurons - out, n_neurons))
+
+
+class ShardLoadWatch:
+    """Straggler watch over the serving loop's synchronous dispatches.
+
+    A single-controller mesh step yields ONE host-observed wall time per
+    chunk. What IS observable per batch shard is its live-slot load, so
+    each dispatch's time is attributed to shards proportionally to the
+    live slots they own (slots map to batch shards contiguously,
+    ``slot // slots_per_shard``). A shard that persistently carries more
+    live streams than the fleet, which FIFO slot reuse can produce,
+    accumulates strikes and earns a ``rebalance_shards`` suggestion.
+    """
+
+    # a shard earns a rebalance suggestion only when flagged in at least
+    # this fraction of dispatches (and at least twice): a transient
+    # 3-chunk imbalance at admission time should not brand the whole run
+    PERSISTENT_FRACTION = 0.1
+
+    def __init__(self, n_shards: int, n_slots: int, registry=None,
+                 tracer=None):
+        self.n_shards = int(n_shards)
+        self.n_slots = int(n_slots)
+        padded = -(-n_slots // n_shards) * n_shards
+        self.slots_per_shard = padded // n_shards
+        self.detector = StragglerDetector(num_hosts=n_shards,
+                                          warmup_steps=3, patience=3)
+        #: optional MetricsRegistry: each dispatch publishes the
+        #: attributed per-shard times as ``snn_shard_step_seconds`` gauges
+        #: and the detector steps THROUGH the registry, so the exported
+        #: timings are exactly what the flags were computed from
+        self.registry = registry
+        #: optional SpanTracer: each dispatch records one ``shard_step``
+        #: span (per-shard attributed times and their flags), the record
+        #: ``obs.timeline.mesh_lanes`` folds
+        self.tracer = tracer
+        self.flag_counts = np.zeros(n_shards, np.int64)
+        self.chunk_times: list[float] = []
+
+    def observe(self, dt: float, live_slots) -> None:
+        self.chunk_times.append(dt)
+        load = np.zeros(self.n_shards)
+        for slot in live_slots:
+            load[slot // self.slots_per_shard] += 1
+        mean = load.mean()
+        attributed = dt * load / mean if mean > 0 else np.full(
+            self.n_shards, dt)
+        if self.registry is not None:
+            fam = self.registry.gauge("snn_shard_step_seconds")
+            for shard, t in enumerate(attributed):
+                fam.labels(shard=shard).set(float(t))
+            flags = observe_from_registry(self.detector, self.registry,
+                                          tracer=self.tracer)
+        else:
+            flags = self.detector.observe(attributed)
+            if self.tracer is not None:
+                self.tracer.event("shard_step", None,
+                                  times=[float(t) for t in attributed],
+                                  flags=[int(f) for f in flags])
+        self.flag_counts += flags
+
+    def persistent_flags(self) -> np.ndarray:
+        """Shards flagged persistently enough to act on (bool mask)."""
+        return self.flag_counts >= max(
+            2, int(self.PERSISTENT_FRACTION * max(len(self.chunk_times), 1)))
+
+    def report(self) -> dict | None:
+        """Structured straggler-watch summary (None before any dispatch)."""
+        if not self.chunk_times:
+            return None
+        ct = np.asarray(self.chunk_times) * 1e3
+        rep = {
+            "dispatches": len(ct),
+            "n_shards": self.n_shards,
+            "dispatch_ms": {"p50": float(np.percentile(ct, 50)),
+                            "p95": float(np.percentile(ct, 95))},
+        }
+        if self.n_shards > 1:
+            persistent = self.persistent_flags()
+            rep.update({
+                "attributed_mean_s": float(self.detector.stats["mean"]
+                                           .mean()),
+                "flag_counts": self.flag_counts.tolist(),
+                "persistent": np.where(persistent)[0].tolist(),
+                "all_flagged": bool(persistent.all()),
+                "suggested_slot_split": rebalance_shards(
+                    self.n_slots, persistent).tolist(),
+            })
+        return rep
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -137,11 +242,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--models", type=int, default=2,
                     help="co-resident models sharing the fused engine")
     ap.add_argument("--devices", type=int, default=1,
-                    help="N > 1 needs the mesh (ROADMAP Queue 1 item 9), "
-                         "which is not ported yet")
+                    help="shard the fused server over N logical devices "
+                         "(host entries with --device cpu; the visible "
+                         "cards round-robin on cuda, shards sharing a card "
+                         "beyond the card count)")
     ap.add_argument("--mesh", default=None, metavar="KNxKB",
-                    help="needs the mesh (ROADMAP Queue 1 item 9), which is "
-                         "not ported yet")
+                    help="neuron x batch mesh split for --devices "
+                         "(default: 2 x N/2 when N allows)")
     ap.add_argument("--connector", default=None, metavar="DIR",
                     help="root a FILE-backed carry connector at DIR "
                          "(default: in-memory): redeploy drains and async "
@@ -356,11 +463,7 @@ def _render_summary(s: dict) -> list[str]:
                 f"[serve-snn] per-stream latency: mean {lat['mean']:.1f} "
                 f"ms, p50 {lat['p50']:.1f} ms, p95 {lat['p95']:.1f} ms "
                 f"(queueing under {s['n_slots']} slots)")
-        d = s["dispatch_ms"]
-        if d is not None:
-            lines.append(
-                f"[serve-snn] {s['dispatches']} chunk dispatches: "
-                f"p50 {d['p50']:.1f} ms, p95 {d['p95']:.1f} ms")
+        lines.extend(_render_straggler(s["straggler"], s["n_slots"]))
         sp, eg = s["sparsity"], s["event_gate"]
         lines.append(
             f"[serve-snn] stream spike sparsity: input mean "
@@ -388,6 +491,40 @@ def _render_summary(s: dict) -> list[str]:
             f"{en['sops']:.0f} measured SOPs, {en['row_fetches']:.0f} row "
             f"fetches -> {uj['total_uj']:.1f} uJ at {bk['total_mw']:.0f} mW "
             f"avg ({bk['weight_memory_pct']:.1f}% weight memory)")
+    return lines
+
+
+def _render_straggler(rep: dict | None, n_slots: int) -> list[str]:
+    if rep is None:
+        return []
+    d = rep["dispatch_ms"]
+    if rep["n_shards"] <= 1:
+        # unsharded run: no shards to attribute or rebalance
+        return [
+            f"[serve-snn] {rep['dispatches']} chunk dispatches: "
+            f"p50 {d['p50']:.1f} ms, p95 {d['p95']:.1f} ms"
+        ]
+    lines = [
+        f"[serve-snn] straggler watch over {rep['dispatches']} chunk "
+        f"dispatches x {rep['n_shards']} batch shards: load-attributed "
+        f"step time mean {rep['attributed_mean_s']:.4f}s "
+        f"(dispatch p50 {d['p50']:.1f} ms, p95 {d['p95']:.1f} ms), "
+        f"per-shard flag counts {rep['flag_counts']}"
+    ]
+    if rep["persistent"] and not rep["all_flagged"]:
+        lines.append(
+            f"[serve-snn] persistently overloaded shard(s) "
+            f"{rep['persistent']} -> suggested slot rebalance "
+            f"{rep['suggested_slot_split']} (of {n_slots} slots)")
+    elif rep["all_flagged"]:
+        lines.append(
+            "[serve-snn] all shards flagged together (fleet-wide "
+            "step-time stretch, not a per-shard straggler); slot "
+            f"split unchanged {rep['suggested_slot_split']}")
+    else:
+        lines.append(
+            "[serve-snn] no persistently overloaded shards; slot "
+            f"split stays uniform {rep['suggested_slot_split']}")
     return lines
 
 
@@ -454,6 +591,11 @@ def run_async(args, server, views, requests, rng, metrics,
     fe = next(iter(views.values())).frontend
     if any(v.frontend is not fe for v in views.values()):
         raise RuntimeError("co-resident views must share one frontend")
+    if args.devices > 1 or args.gate:
+        print("[serve-snn] note: the straggler watch and event-sparsity "
+              "summaries are sync-mode only; the async run reports the "
+              "front-door metrics below (the engine itself is still "
+              "sharded/gated as requested)")
     tenants = _assign_tenants(args, fe.qos, len(requests))
     arrive_at = np.cumsum(rng.exponential(1.0 / args.arrival_rate,
                                           len(requests)))
@@ -534,10 +676,9 @@ def _check_args(args) -> None:
                          "chunk-round in sync mode, per second with "
                          "--async; the arrival plan cannot make progress "
                          "at rate 0)")
-    if args.devices != 1 or args.mesh:
-        raise SystemExit("--devices N > 1 and --mesh need the mesh, "
-                         "ROADMAP Queue 1 item 9, which is not ported to "
-                         "repro_torch yet")
+    if args.mesh and args.devices <= 1:
+        raise SystemExit("--mesh requires --devices N (N > 1); without it "
+                         "the server would silently run unsharded")
     if args.drain is not None and args.async_mode:
         raise SystemExit("--drain is a sync-mode drill (the async frontend "
                          "is rebuilt by the redeploy; resubmit instead)")
@@ -597,6 +738,15 @@ def main(argv=None) -> dict:
                          f"({sorted(qos_policy.classes)}); the burst "
                          f"tenant must be one the policy ranks")
 
+    mesh = None
+    if args.devices > 1:
+        devices = ensure_host_devices(args.devices, args.device)
+        try:
+            kn, kb = parse_mesh_spec(args.devices, args.mesh)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        mesh = make_spike_mesh(neuron=kn, batch=kb, devices=devices)
+
     rng = np.random.default_rng(args.seed)
     connector = (None if args.connector is None
                  else FileCarryConnector(args.connector))
@@ -609,7 +759,7 @@ def main(argv=None) -> dict:
     set_registry(metrics)
     slo = _slo(args, metrics, recorder)
     sess = AcceleratorSession(backend=args.backend, device=args.device,
-                              fuse_steps=args.fuse_steps,
+                              mesh=mesh, fuse_steps=args.fuse_steps,
                               connector=connector, metrics=metrics,
                               tracer=tracer)
     names = [f"snn{i}" for i in range(args.models)]
@@ -631,18 +781,31 @@ def main(argv=None) -> dict:
                               frontend=frontend_cfg)
              for name in names}
     server = next(iter(views.values())).server
+    n_shards = 1 if mesh is None else int(mesh.shape["batch"])
+    mesh_info = None if mesh is None else {
+        "neuron": int(mesh.shape["neuron"]),
+        "batch": int(mesh.shape["batch"]), "shards": mesh.size,
+        "physical_devices": [str(d) for d in mesh.physical_devices]}
+    mesh_note = "" if mesh is None else (
+        f", mesh {mesh_info['neuron']}x{mesh_info['batch']} (neuron x "
+        f"batch) over {mesh.size} devices backed by "
+        f"{len(mesh.physical_devices)} physical "
+        f"({', '.join(mesh_info['physical_devices'])})")
     print(f"[serve-snn] {args.models} co-resident model(s) on one fused "
           f"engine ({server.engine.n_sources} sources x "
           f"{server.engine.n_phys} neurons), backend={args.backend}, "
           f"gate={server.engine.gate}, fuse_steps={args.fuse_steps}, "
           f"device={server.device}, {args.n_slots} slots x {args.chunk}-step "
-          f"chunks")
+          f"chunks{mesh_note}")
+    watch = ShardLoadWatch(n_shards, args.n_slots, registry=metrics,
+                           tracer=tracer)
     requests = _request_plan(args, names, rng)
     crash_net = (recorder.armed() if recorder is not None
                  else contextlib.nullcontext())
     launches0 = dict(ops.LAUNCHES)
     base = {"device": str(server.device), "backend": args.backend,
-            "gate": server.engine.gate, "fuse_steps": args.fuse_steps}
+            "gate": server.engine.gate, "fuse_steps": args.fuse_steps,
+            "mesh": mesh_info}
 
     if args.async_mode:
         with crash_net, profile_trace(args.profile):
@@ -665,7 +828,7 @@ def main(argv=None) -> dict:
     out_chunks: dict = {uid: [] for uid, _, _ in requests}
     t_arrive: dict = {}
     t_done: dict = {}
-    dispatch_s: list = []
+    rebalanced = False
     steps_base = 0            # stream-timesteps served by drained servers
     round_i = 0
     t0 = time.perf_counter()
@@ -699,9 +862,12 @@ def main(argv=None) -> dict:
             # ONE batched dispatch per round across models
             done = []
             fused_inputs = {}
+            live_slots = []
             for uid, (name, spikes, cur) in live.items():
-                if server.slot_of(uid) is None:
+                slot = server.slot_of(uid)
+                if slot is None:
                     continue  # still waiting for a slot
+                live_slots.append(slot)
                 n = min(args.chunk, len(spikes) - cur)
                 fused_inputs[uid] = views[name].embed(spikes[cur:cur + n])
                 live[uid][2] = cur + n
@@ -710,9 +876,21 @@ def main(argv=None) -> dict:
             if fused_inputs:
                 t_chunk = time.perf_counter()
                 res = server.feed(fused_inputs)
-                dispatch_s.append(time.perf_counter() - t_chunk)
+                watch.observe(time.perf_counter() - t_chunk, live_slots)
                 for uid, r in res.items():
                     out_chunks[uid].append(r["spikes"])
+            if n_shards > 1 and not rebalanced:
+                flags = watch.persistent_flags()
+                if flags.any() and not flags.all():
+                    moves = rebalance_streams(
+                        server, flags, slots_per_shard=watch.slots_per_shard)
+                    if moves:
+                        rebalanced = True
+                        print(f"[serve-snn] straggler rebalance: migrated "
+                              f"{len(moves)} live stream(s) off flagged "
+                              f"shard(s) {np.where(flags)[0].tolist()} onto "
+                              f"donor-shard slots {moves} (uid, from, to); "
+                              f"carries moved bit-for-bit")
             for uid in done:
                 views[live.pop(uid)[0]].detach(uid, reason="done")
                 t_done[uid] = time.perf_counter()
@@ -736,7 +914,6 @@ def main(argv=None) -> dict:
                              torch.from_numpy(out_stack)).numpy()
     gated, dense = block_traffic(sources, tile_batch=1)
     tiled, tiled_dense = block_traffic(sources, tile_batch=8)
-    disp = np.asarray(dispatch_s)
     summary = {
         "mode": "sync",
         **base,
@@ -752,11 +929,7 @@ def main(argv=None) -> dict:
             "p50": float(np.percentile(lats, 50) * 1e3),
             "p95": float(np.percentile(lats, 95) * 1e3),
         },
-        "dispatches": int(disp.size),
-        "dispatch_ms": None if not disp.size else {
-            "p50": float(np.percentile(disp, 50) * 1e3),
-            "p95": float(np.percentile(disp, 95) * 1e3),
-        },
+        "straggler": watch.report(),
         "sparsity": {
             "input_mean_pct": float(100 * in_sp.mean()),
             "input_p50_pct": float(100 * np.percentile(in_sp, 50)),

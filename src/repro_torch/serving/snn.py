@@ -178,6 +178,14 @@ class SpikeServer:
     multiple of K: the engine pads a window's remainder with inactive
     steps.
 
+    ``mesh`` (a :class:`~repro_torch.distributed.spike_mesh.SpikeMesh`)
+    scales the server out: the engine is re-hosted as a
+    :class:`~repro_torch.distributed.spike_mesh.MeshSpikeEngine` and the
+    slot carry stays sharded, each slot's rows on the batch shard that
+    owns it (``slot // slots_per_shard``); ``feed`` is byte-identical. The
+    mesh's devices place the shards, so ``device`` is not used with a
+    mesh engine.
+
     ``metrics`` / ``tracer`` (a
     :class:`~repro_torch.obs.metrics.MetricsRegistry` / a
     :class:`~repro_torch.obs.tracing.SpanTracer`) opt the server into
@@ -189,15 +197,18 @@ class SpikeServer:
 
     def __init__(self, engine: SpikeEngine, *, n_slots: int = 8,
                  chunk_steps: int = 8, gate: str | None = None,
-                 fuse_steps: int | None = None, device="cuda",
+                 fuse_steps: int | None = None, device="cuda", mesh=None,
                  metrics=None, tracer=None):
         if chunk_steps <= 0:
             raise ValueError(f"chunk_steps must be positive, got {chunk_steps}")
-        engine = engine.to_device(resolve_device(device))
+        if getattr(engine, "mesh", None) is None and mesh is None:
+            engine = engine.to_device(resolve_device(device))
         if gate is not None:
             engine = engine.with_gate(gate)
         if fuse_steps is not None:
             engine = engine.with_fuse_steps(fuse_steps)
+        if mesh is not None and getattr(engine, "mesh", None) != mesh:
+            engine = engine.to_mesh(mesh)
         self.engine = engine
         self.device = engine.device
         self.n_slots = int(n_slots)
@@ -371,8 +382,7 @@ class SpikeServer:
             self._obs_occupancy()
             return st
         slot, admitted = self.scheduler.release(uid)
-        self.carry["v"][slot] = 0
-        self.carry["spikes"][slot] = 0
+        self.engine.set_carry_rows(self.carry, slot, 0, 0)
         if self._prev_host is not None:
             self._prev_host[slot] = 0
         if admitted is not None:
@@ -416,8 +426,8 @@ class SpikeServer:
         st = self.streams[uid]
         # one device-to-host copy of both rows; a fresh array, so a later
         # in-place write to the slot cannot reach the snapshot
-        rows = torch.stack([self.carry["v"][slot],
-                            self.carry["spikes"][slot]]).cpu().numpy().copy()
+        rows = torch.stack(self.engine.carry_rows(self.carry, slot)
+                           ).cpu().numpy().copy()
         return CarrySnapshot(
             stream_id=uid,
             slot_params=self.slot_params(),
@@ -480,8 +490,7 @@ class SpikeServer:
             slot = self.scheduler.submit_at(uid, slot)
         rows = torch.from_numpy(np.stack(
             [snap.arrays["v"], snap.arrays["spikes"]])).to(self.device)
-        self.carry["v"][slot] = rows[0]
-        self.carry["spikes"][slot] = rows[1]
+        self.engine.set_carry_rows(self.carry, slot, rows[0], rows[1])
         self.streams[uid] = StreamStats(
             uid=uid,
             steps=int(snap.meta.get("steps", 0)),

@@ -16,7 +16,8 @@ Cerebra-S on the kernel backends (their multiply decay), and the float
 software baseline under a global TF32 setting; and the front door: a
 carry snapshot taken on the card equals the host's byte for byte and
 continues the stream on either, and the frontend's pump thread serves on
-the card what the host serves.
+the card what the host serves; and the mesh: 2 x 2 and 2 x 4 meshes whose
+shards share the card equal the unsharded host run.
 """
 
 import pathlib
@@ -523,3 +524,40 @@ def test_frontend_pump_thread_on_the_card(card, K):
         assert (launched > 0) == (d == "cuda")
     for a, b in zip(outs["cpu"], outs["cuda"]):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)])
+@pytest.mark.parametrize("backend", ["cuda", "cuda-f32"])
+@pytest.mark.parametrize("n_phys", [48, 130])
+def test_mesh_on_the_card_equals_the_host(card, shape, backend, n_phys):
+    """A mesh whose shards share the card equals the unsharded host run:
+    run, masked step_chunk and a carry row written into a batch shard;
+    each shard launches the single-step kernel once a step."""
+    from repro_torch.distributed.spike_mesh import make_spike_mesh
+
+    rng = np.random.default_rng(n_phys + shape[1])
+    n_in, B, T = 37, 5, 6
+    W = ((rng.random((n_in + n_phys, n_phys)) < 0.3)
+         * rng.integers(-2**16, 2**16, (n_in + n_phys, n_phys))
+         ).astype(np.int32)
+    ext = (rng.random((T, B, n_in)) < 0.35).astype(np.int32)
+    act = (rng.random((T, B)) < 0.6).astype(np.int32)
+    kw = dict(decay=teng.DecaySpec.shift(0.25), threshold_raw=1 << 16,
+              reset_mode="subtract", backend=backend)
+    host = teng.SpikeEngine(W, n_in, device="cpu", **kw)
+    kn, kb = shape
+    mesh = make_spike_mesh(kn, kb, devices=[torch.device("cuda", 0)]
+                           * (kn * kb))
+    dev = teng.SpikeEngine(W, n_in, device=card, **kw).to_mesh(mesh)
+    want = host.run(ext)
+    before = ops.LAUNCHES["spike_timestep"]
+    got = dev.run(ext)
+    assert ops.LAUNCHES["spike_timestep"] - before == T * kn * kb
+    for k in ("spikes", "v_final"):
+        assert torch.equal(got[k].cpu(), want[k])
+    hc, hs = host.step_chunk(host.init_carry(B), ext, act)
+    dc, ds = dev.step_chunk(dev.init_carry(B), ext, act)
+    assert torch.equal(ds.cpu(), hs)
+    assert torch.equal(dc["v"].cpu(), hc["v"])
+    dev.set_carry_rows(dc, B - 1, hc["v"][0], hc["spikes"][0])
+    assert torch.equal(dev.carry_rows(dc, B - 1)[0].cpu(), hc["v"][0])

@@ -156,7 +156,16 @@ def test_unported_paths_raise_and_rehosting_is_identical():
     assert fused.fuse_steps == 4 and fused._use_fused
     for k in ("spikes", "v_final"):
         assert torch.equal(fused.run(ext)[k], te.run(ext)[k])
-    with pytest.raises(NotImplementedError):
+    # the mesh is ported: a 2 x 2 mesh of host shards re-hosts the same
+    # program byte for byte; something that is not a spike mesh raises
+    from repro_torch.distributed.spike_mesh import (MeshSpikeEngine,
+                                                    make_spike_mesh)
+
+    meshed = te.to_mesh(make_spike_mesh(2, 2, devices=["cpu"] * 4))
+    assert isinstance(meshed, MeshSpikeEngine) and meshed.backend == "cuda"
+    for k in ("spikes", "v_final"):
+        assert torch.equal(meshed.run(ext)[k], te.run(ext)[k])
+    with pytest.raises(ValueError, match="neuron"):
         te.to_mesh(None)
     # AER input is ported: a stream runs as its dense raster
     stream = dense_to_aer(ext, int(ext.sum()))

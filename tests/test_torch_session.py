@@ -363,8 +363,11 @@ def test_serve_snn_async_entry_points_run_on_cpu(tmp_path, capsys):
     assert list(conn.iterdir()) == []             # every spill resumed
     for argv, what in ((["--async", "--qos-preempt"], "needs a --qos"),
                        (["--drain", "1", "--async"], "sync-mode"),
-                       (["--devices", "2"], "item 9"),
-                       (["--mesh", "1x2"], "item 9"),
+                       (["--mesh", "1x2"], "requires --devices"),
+                       (["--devices", "4", "--mesh", "3x1"],
+                        "does not cover"),
+                       (["--devices", "2", "--mesh", "2"],
+                        "must look like"),
                        (["--burst", "x"], "require --async")):
         with pytest.raises(SystemExit, match=what):
             tserve.main(["--device", "cpu", *argv])
@@ -409,14 +412,15 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.serving.qos', 'repro_torch.distributed.straggler', "
         "'repro_torch.obs.metrics', 'repro_torch.obs.tracing', "
         "'repro_torch.obs.timeline', 'repro_torch.obs.slo', "
-        "'repro_torch.obs.flight')\n"
+        "'repro_torch.obs.flight', 'repro_torch.distributed.partition', "
+        "'repro_torch.distributed.spike_mesh')\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 45
+    assert int(r.stdout.strip()) >= 47
 
 
 def test_port_sources_name_neither_jax_nor_repro():
@@ -429,7 +433,7 @@ def test_port_sources_name_neither_jax_nor_repro():
         r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s))")
     files = sorted((repo / "src" / "repro_torch").rglob("*.py"))
     files.append(repo / "chip_smoke.py")
-    assert len(files) > 45
+    assert len(files) > 47
     bad = [f"{f.name}:{i}: {line.strip()}"
            for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
