@@ -93,8 +93,11 @@ in phases that each exit non-zero on failure:
    --mesh 2x2 --json-summary`` against ``--devices 1`` (equal counters,
    four times the launches) and ``kernel_bench --devices 4 --mesh 2x2
    --streaming --json``. It prints the wall and device time of one step
-   of the 8-slot slice unsharded and on both meshes, beside the card's
-   name and power limit.
+   of the 8-slot slice unsharded and on both meshes over five interleaved
+   rounds, and a profiler breakdown of the host's work a step (time in
+   torch ops and CUDA API calls against Python between them, the
+   costliest ops; the 2 x 2 step's Chrome trace goes to
+   ``chiprun_out/``), beside the card's name and power limit.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -2148,10 +2151,49 @@ def phase_mesh_entry_points(torch, ops):
     return launched, {n: r["us_per_call"] for n, r in d4.items()}
 
 
+def host_breakdown(torch, fn, n, trace_path=None) -> dict:
+    """Where the host's time of ``fn()`` goes, from a CPU + CUDA
+    ``torch.profiler`` trace over ``n`` calls: the wall a call under the
+    profiler, the host µs inside torch ops and CUDA API calls (self
+    time), the rest (Python between ops), the ops and CUDA API calls a
+    call issues, and the five costliest by self time. Writes the Chrome
+    trace to ``trace_path`` when given."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e6
+    host = [e for e in prof.key_averages()
+            if getattr(e, "self_cpu_time_total", 0) > 0]
+    in_ops = sum(e.self_cpu_time_total for e in host) / n
+    api = [e for e in host if e.key.startswith(("cuda", "cu"))]
+    top = sorted(host, key=lambda e: -e.self_cpu_time_total)[:5]
+    if trace_path is not None:
+        trace_path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace_path))
+    return {"wall_us": wall, "in_ops_us": in_ops,
+            "python_us": wall - in_ops,
+            "ops": sum(e.count for e in host if e not in api) / n,
+            "cuda_api_calls": sum(e.count for e in api) / n,
+            "cuda_api_us": sum(e.self_cpu_time_total for e in api) / n,
+            "top": [(e.key, e.count / n, e.self_cpu_time_total / n)
+                    for e in top]}
+
+
 def phase_mesh_times(np, torch, session_cls, feedforward, cfg):
     """The wall and device time of one step of the slice's 8-slot batch
     (``step_chunk`` of one step, "cuda", batch-tile) unsharded and on the
-    2 x 2 and 2 x 4 meshes of card 0."""
+    2 x 2 and 2 x 4 meshes of card 0: five rounds of 50 calls each, the
+    shapes in turn within a round (so a slower host slows every shape
+    alike); then a profiler breakdown of the host's work a step, with the
+    2 x 2 step's Chrome trace under ``chiprun_out/``. Returns ({what:
+    [(device, wall, busy) a round]}, {what: breakdown})."""
     from repro_torch.distributed.spike_mesh import make_spike_mesh
 
     nets = mnist_nets(np, feedforward, cfg)
@@ -2162,7 +2204,7 @@ def phase_mesh_times(np, torch, session_cls, feedforward, cfg):
     rng = np.random.default_rng(5)
     ext = torch.from_numpy((rng.random((1, N_SLOTS, eng.n_inputs)) < 0.1)
                            .astype(np.int32)).cuda()
-    times = {}
+    steps = {}
     for shape in ((1, 1),) + MESH_SHAPES:
         e = eng if shape == (1, 1) else eng.to_mesh(
             card_mesh(torch, make_spike_mesh, *shape))
@@ -2171,9 +2213,25 @@ def phase_mesh_times(np, torch, session_cls, feedforward, cfg):
             carry, _ = e.step_chunk(carry, ext)
         what = ("unsharded" if shape == (1, 1)
                 else f"mesh {shape[0]}x{shape[1]}")
-        times[what] = device_and_wall_us(
-            torch, lambda e=e, c=carry: e.step_chunk(c, ext), 50)
-    return times
+        steps[what] = lambda e=e, c=carry: e.step_chunk(c, ext)
+    times = {what: [] for what in steps}
+    for _ in range(5):
+        for what, fn in steps.items():
+            times[what].append(device_and_wall_us(torch, fn, 50))
+    trace = ROOT / "chiprun_out" / "mesh_step_2x2.trace.json"
+    breakdown = {what: host_breakdown(
+        torch, fn, 20, trace if what == "mesh 2x2" else None)
+        for what, fn in steps.items()}
+    for what, b in breakdown.items():
+        log(f"host breakdown of one step, {what} (profiler, 20 steps): "
+            f"wall {b['wall_us']:.1f} us, in torch ops and CUDA API "
+            f"{b['in_ops_us']:.1f} us, Python between them "
+            f"{b['python_us']:.1f} us; {b['ops']:.0f} ops and "
+            f"{b['cuda_api_calls']:.0f} CUDA API calls "
+            f"({b['cuda_api_us']:.1f} us) a step; costliest: "
+            + "; ".join(f"{k} x{c:.0f} {u:.1f} us" for k, c, u in b["top"]))
+    log(f"the 2 x 2 step's Chrome trace: {trace.relative_to(ROOT)}")
+    return times, breakdown
 
 
 # --------------------------------------------------------------------------
@@ -2267,8 +2325,8 @@ def main() -> None:
     worst_shard = phase_mesh_kernel_shapes(torch, ts, ops)
     phase_mesh_carries(np, torch, AcceleratorSession, feedforward, cfg, refs)
     mesh_entry_launches, mesh_bench = phase_mesh_entry_points(torch, ops)
-    mesh_times = phase_mesh_times(np, torch, AcceleratorSession, feedforward,
-                                  cfg)
+    mesh_times, mesh_host = phase_mesh_times(
+        np, torch, AcceleratorSession, feedforward, cfg)
 
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     for what, (dev_us, wall_us, busy_us) in [*event_times.items(),
@@ -2285,11 +2343,15 @@ def main() -> None:
                 f"{front_rates[f'async FIFO {backend}/K={K}']:.1f} vs sync "
                 f"{rates[(backend, 'batch-tile', K)]:.1f} stream-steps/s "
                 f"(phase 3) ({card})")
-    for what, (dev_us, wall_us, busy_us) in mesh_times.items():
+    for what, rounds in mesh_times.items():
+        walls = sorted(w for _, w, _ in rounds)
+        dev_us, wall_us, busy_us = rounds[0]
         log(f"time one step of the 8-slot slice, {what}: device "
             f"{dev_us:.1f} us between events, wall {wall_us:.1f} us, device "
             f"busy {busy_us:.1f} us ({100 * busy_us / wall_us:.1f} % of "
-            f"wall) ({card})")
+            f"wall) in round 1; wall over 5 rounds min / median / max "
+            f"{walls[0]:.1f} / {walls[2]:.1f} / {walls[-1]:.1f} us, busy "
+            + " / ".join(f"{b:.1f}" for _, _, b in rounds) + f" us ({card})")
     for what, rate in mesh_rates.items():
         log(f"rate {what}: {rate:.1f} stream-steps/s ({card})")
     log(f"obs overhead (kernel_bench --obs-overhead, cuda): "
@@ -2324,8 +2386,12 @@ def main() -> None:
         "mesh_launches": mesh_launches,
         "mesh_entry_launches": mesh_entry_launches["spike_timestep"],
         "mesh_stream_steps_per_s": mesh_rates,
-        "mesh_step_us": {what: {"device": d, "wall": w, "busy": b}
-                         for what, (d, w, b) in mesh_times.items()},
+        "mesh_step_us": {what: [{"device": d, "wall": w, "busy": b}
+                                for d, w, b in rounds]
+                         for what, rounds in mesh_times.items()},
+        "mesh_step_host_us": {what: {k: v for k, v in b.items()
+                                     if k != "top"}
+                              for what, b in mesh_host.items()},
         "mesh_bench_us": mesh_bench,
         "card": card,
     }, {

@@ -20,6 +20,7 @@ each (``ops.spike_timestep_fused``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -187,17 +188,19 @@ class SpikeEngine:
         self.gate = gate
         self.fuse_steps = fuse_steps
         self._mode = mode
-        # kernel backends pad the image to the block multiples once, so a
-        # step or a window moves no weight copy (the ops wrappers accept
-        # the padded layouts as they are)
-        self._kernel_weights = None
-        self._fused_weights = None
-        if mode is not None:
-            self._kernel_weights = ops._pad_to(
-                ops._pad_to(weights_raw, 0, _F32_BLOCK_SRC), 1,
-                128).contiguous()
-        if self._use_fused:
-            self._fused_weights = ops.fused_weights(weights_raw, n_inputs)
+
+    # kernel backends pad the image to the block multiples once, at the
+    # first step or window, so a step moves no weight copy (the ops
+    # wrappers accept the padded layouts as they are); an engine that is
+    # only re-hosted (``to_mesh``) never pads its whole image
+    @functools.cached_property
+    def _kernel_weights(self) -> torch.Tensor:
+        return ops._pad_to(ops._pad_to(self.weights_raw, 0, _F32_BLOCK_SRC),
+                           1, 128).contiguous()
+
+    @functools.cached_property
+    def _fused_weights(self):
+        return ops.fused_weights(self.weights_raw, self.n_inputs)
 
     # ------------------------------------------------------------------
     def _rehost(self, **changes) -> "SpikeEngine":
@@ -254,29 +257,41 @@ class SpikeEngine:
         carry["v"][slot] = v
         carry["spikes"][slot] = spikes
 
-    def _step(self, carry: dict, ext_t: torch.Tensor, weights=None):
-        """One fused timestep for a batch of external spike vectors.
-
-        ``weights`` defaults to this engine's image (padded for the
-        kernels); a mesh shard passes its own column slice."""
-        sources = torch.cat([ext_t.to(torch.int32), carry["spikes"]], dim=-1)
+    def _sources(self, ext_t: torch.Tensor, spikes: torch.Tensor):
+        """A step's sources, ``concat(ext_t, spikes_{t-1})``; on a kernel
+        backend padded and gated (:func:`ops.gated_sources`), once for
+        every weight slice that reads them."""
+        sources = torch.cat([ext_t.to(torch.int32), spikes], dim=-1)
         if self._mode is None:
-            syn = exact_int32_matmul(
-                sources, self.weights_raw if weights is None else weights)
-            v_new = fxp.wrap_int32(self.decay.apply(carry["v"]).to(
-                torch.int64) + syn.to(torch.int64))
+            return sources
+        return ops.gated_sources(sources,
+                                 block_batch=_GATE_TILE_BATCH[self.gate])
+
+    def _advance(self, sources, v: torch.Tensor, weights: torch.Tensor):
+        """Accumulate ``sources`` (from :meth:`_sources`) through
+        ``weights``, then decay, integrate and fire ``v``: this engine's
+        image, or a mesh shard's column slice of it."""
+        if self._mode is None:
+            syn = exact_int32_matmul(sources, weights)
+            v_new = fxp.wrap_int32(self.decay.apply(v).to(torch.int64)
+                                   + syn.to(torch.int64))
             v_out, spikes = fire_reset(v_new, self.threshold_raw,
                                        self.reset_mode)
         else:
             v_out, spikes = ops.spike_timestep(
-                sources,
-                self._kernel_weights if weights is None else weights,
-                carry["v"],
-                decay_kind=self.decay.kind, decay_rate=self.decay.rate,
-                decay_raw=self.decay.raw, threshold_raw=self.threshold_raw,
-                reset_mode=self.reset_mode, use_f32=(self._mode == "f32"),
+                sources, weights, v, decay_kind=self.decay.kind,
+                decay_rate=self.decay.rate, decay_raw=self.decay.raw,
+                threshold_raw=self.threshold_raw, reset_mode=self.reset_mode,
+                use_f32=(self._mode == "f32"),
                 block_batch=_GATE_TILE_BATCH[self.gate])
         return {"v": v_out, "spikes": spikes}, spikes
+
+    def _step(self, carry: dict, ext_t: torch.Tensor):
+        """One fused timestep for a batch of external spike vectors."""
+        weights = (self.weights_raw if self._mode is None
+                   else self._kernel_weights)
+        return self._advance(self._sources(ext_t, carry["spikes"]),
+                             carry["v"], weights)
 
     def step(self, carry: dict, ext_t) -> tuple[dict, torch.Tensor]:
         """One timestep: ``(carry, ext_t (B, n_inputs)) -> (carry',

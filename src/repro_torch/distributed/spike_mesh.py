@@ -22,11 +22,14 @@ Its counterpart here is one process over a ``(neuron, batch)`` grid of
   independent stimulus streams          the batch rows, split over
                                         ``batch`` (no exchange)
 
-Every shard then runs the unmodified single-device step
-(``SpikeEngine._step``) on its columns, so the kernel backends launch the
-``spike_timestep`` kernel once per shard per step. Each output column's
-int32 accumulate happens on the shard that owns it, over the full
-gathered source vector, so the mesh is byte-identical to one device.
+The sources of a batch shard (and, on a kernel backend, their padding
+and gate scalars) are built once per device of that shard
+(``SpikeEngine._sources``); every neuron shard then runs the unmodified
+single-device accumulate and fire (``SpikeEngine._advance``) on its
+columns, so the kernel backends launch the ``spike_timestep`` kernel once
+per shard per step. Each output column's int32 accumulate happens on the
+shard that owns it, over the full gathered source vector, so the mesh is
+byte-identical to one device.
 
 A mesh may repeat a device: several shards then share one card (or the
 host), the counterpart of JAX's faked host devices. Non-divisible shapes
@@ -42,7 +45,8 @@ import torch
 
 from repro_torch.core.engine import SpikeEngine, _as_int32, _F32_BLOCK_SRC
 from repro_torch.device import resolve_device
-from repro_torch.distributed.partition import PartitionRules, spec_for
+from repro_torch.distributed.partition import (PartitionRules, _axis_size,
+                                                spec_for)
 from repro_torch.kernels import ops
 
 __all__ = [
@@ -77,19 +81,19 @@ class SpikeMesh:
     cache; a device may appear more than once."""
 
     devices: tuple
-    axis_names: tuple = (NEURON_AXIS, BATCH_AXIS)
 
     def __post_init__(self):
         rows = tuple(tuple(torch.device(d) for d in row)
                      for row in self.devices)
-        if (len(self.axis_names) != 2 or not rows
-                or len({len(r) for r in rows}) != 1 or not rows[0]):
+        if not rows or len({len(r) for r in rows}) != 1 or not rows[0]:
             raise ValueError(
                 f"a spike mesh is a non-empty rectangular 2-D grid of "
-                f"devices with two axis names, got {len(rows)} rows and "
-                f"axes {self.axis_names}")
+                f"devices, got rows of {[len(r) for r in rows]}")
         object.__setattr__(self, "devices", rows)
-        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+
+    @property
+    def axis_names(self) -> tuple:
+        return (NEURON_AXIS, BATCH_AXIS)
 
     @property
     def shape(self) -> dict:
@@ -182,6 +186,12 @@ def _pad_up(n: int, k: int) -> int:
     return -(-n // k) * k
 
 
+def _ways(spec: tuple, dim: int, mesh: SpikeMesh) -> int:
+    """How many shards ``spec`` cuts dimension ``dim`` into (1 where it
+    replicates it)."""
+    return _axis_size(mesh, spec[dim] if dim < len(spec) else None)
+
+
 class MeshCarry:
     """A slot batch's carry where its shards step: ``blocks[i][j]`` is
     ``{"v", "spikes"}``, each ``(B_shard, P_shard)`` int32 on
@@ -229,16 +239,14 @@ class MeshSpikeEngine(SpikeEngine):
                  decay, threshold_raw: int, reset_mode: str,
                  backend: str = "reference", gate: str = "batch-tile",
                  fuse_steps: int = 1):
-        names = tuple(getattr(mesh, "axis_names", ()))
-        if names != (NEURON_AXIS, BATCH_AXIS):
+        if not isinstance(mesh, SpikeMesh):
             raise ValueError(
                 f"mesh must name axes {NEURON_AXIS!r} and {BATCH_AXIS!r} "
-                f"(got {names}); use make_spike_mesh()")
+                f"(got {mesh!r}); use make_spike_mesh()")
         super().__init__(
             weights_raw, n_inputs, decay=decay, threshold_raw=threshold_raw,
             reset_mode=reset_mode, backend=backend, gate=gate,
             fuse_steps=fuse_steps, device=mesh.devices[0][0])
-        self._kernel_weights = None   # each shard holds its own slice
         self.mesh = mesh
         grid = self._grid = mesh.devices  # [neuron shard][batch shard]
         self._kn = int(mesh.shape[NEURON_AXIS])
@@ -246,15 +254,17 @@ class MeshSpikeEngine(SpikeEngine):
         # pad the physical axis so each shard owns an equal neuron slice;
         # the source axis grows with it (recurrent feedback stays square)
         self._pp = _pad_up(self.n_phys, self._kn)
-        self._ps = self._pp // self._kn
         sp = self.n_inputs + self._pp
         w = torch.zeros((sp, self._pp), dtype=torch.int32,
                         device=self.device)
         w[:self.n_inputs, :self.n_phys] = self.weights_raw[:self.n_inputs]
         w[self.n_inputs:self.n_inputs + self.n_phys, :self.n_phys] = (
             self.weights_raw[self.n_inputs:])
+        # the rules keep every source row and cut the columns over
+        # "neuron": shard i holds columns [i * ps, (i + 1) * ps)
         self._w_spec = spec_for(("source", "neuron"), (sp, self._pp),
                                 mesh, SNN_RULES)
+        self._ps = self._pp // _ways(self._w_spec, 1, mesh)
         # a shard's slice, padded to the kernels' block multiples on its
         # own (a ragged slice is not a multiple of 128 columns); one copy
         # per (neuron shard, device)
@@ -293,8 +303,7 @@ class MeshSpikeEngine(SpikeEngine):
         there."""
         dev = resolve_device(device)
         mesh = SpikeMesh(tuple(tuple(dev for _ in row)
-                               for row in self.mesh.devices),
-                         self.mesh.axis_names)
+                               for row in self.mesh.devices))
         return self if mesh == self.mesh else self._rehost(mesh=mesh)
 
     @property
@@ -307,8 +316,12 @@ class MeshSpikeEngine(SpikeEngine):
 
     # ------------------------------------------------------------------
     def _batch_shard(self, batch: int) -> int:
-        """Rows per batch shard for a ``batch``-row carry."""
-        return _pad_up(batch, self._kb) // self._kb
+        """Rows per batch shard for a ``batch``-row carry: the rules cut
+        the padded rows over "batch"."""
+        bp = _pad_up(batch, self._kb)
+        spec = spec_for(("batch", "neuron"), (bp, self._pp), self.mesh,
+                        SNN_RULES)
+        return bp // _ways(spec, 0, self.mesh)
 
     def _shard(self, x: torch.Tensor, bs: int) -> list:
         """A logical ``(B, n_phys)`` tensor as ``[i][j]`` blocks on their
@@ -378,10 +391,11 @@ class MeshSpikeEngine(SpikeEngine):
         return final, spikes[0]
 
     def _chunk(self, carry, ext: torch.Tensor, active):
-        """The masked scan over the mesh. Each step: gather the previous
-        boundary spikes of every neuron shard into each batch shard's full
-        ``(B_shard, pp)`` source rows, then step every shard on its columns
-        (the gather for a step ends before any shard of it steps)."""
+        """The masked scan over the mesh. Each step, per batch shard:
+        gather the previous boundary spikes of every neuron shard, build
+        the ``(B_shard, n_inputs + pp)`` sources (and their gate scalars)
+        once on each device of the shard, then step every neuron shard on
+        its columns (the gather ends before any shard of it steps)."""
         carry = self._shard_carry(carry)
         T, B = ext.shape[0], ext.shape[1]
         if B != carry.batch:
@@ -392,32 +406,31 @@ class MeshSpikeEngine(SpikeEngine):
         if active is not None:  # pad slots stay idle
             active = torch.nn.functional.pad(active, (0, pad_b))
         grid, kn, kb = self._grid, self._kn, self._kb
-        ext_s, act_s, raster = [], [], []
-        for i, row in enumerate(grid):
-            ext_s.append([ext[:, j * bs:(j + 1) * bs].to(d)
-                          for j, d in enumerate(row)])
-            act_s.append([None if active is None else
-                          (active[:, j * bs:(j + 1) * bs] != 0).to(d)
-                          for j, d in enumerate(row)])
-            raster.append([torch.empty((T, bs, self._ps), dtype=torch.int32,
-                                       device=d) for d in row])
+        # the distinct devices of each batch shard, and its rows there
+        devs = [tuple(dict.fromkeys(grid[i][j] for i in range(kn)))
+                for j in range(kb)]
+        ext_s = [{d: ext[:, j * bs:(j + 1) * bs].to(d) for d in devs[j]}
+                 for j in range(kb)]
+        act_s = [{d: None if active is None else
+                  (active[:, j * bs:(j + 1) * bs] != 0).to(d)
+                  for d in devs[j]} for j in range(kb)]
+        raster = [[torch.empty((T, bs, self._ps), dtype=torch.int32,
+                               device=d) for d in row] for row in grid]
         blocks = [[dict(b) for b in row] for row in carry.blocks]
         for t in range(T):
-            full = []
             for j in range(kb):
                 spk = torch.cat([blocks[i][j]["spikes"].to(grid[0][j])
                                  for i in range(kn)], dim=1)
-                full.append([spk.to(grid[i][j]) for i in range(kn)])
-            for i in range(kn):
-                for j in range(kb):
-                    c = blocks[i][j]
-                    new, spikes = self._step(
-                        {"v": c["v"], "spikes": full[j][i]}, ext_s[i][j][t],
-                        weights=self._shard_w[i][j])
-                    if act_s[i][j] is None:
+                src = {d: self._sources(ext_s[j][d][t], spk.to(d))
+                       for d in devs[j]}
+                for i in range(kn):
+                    d, c = grid[i][j], blocks[i][j]
+                    new, spikes = self._advance(src[d], c["v"],
+                                                self._shard_w[i][j])
+                    if act_s[j][d] is None:
                         blocks[i][j], raster[i][j][t] = new, spikes
                         continue
-                    keep = act_s[i][j][t][:, None]
+                    keep = act_s[j][d][t][:, None]
                     blocks[i][j] = {
                         "v": torch.where(keep, new["v"], c["v"]),
                         "spikes": torch.where(keep, new["spikes"],

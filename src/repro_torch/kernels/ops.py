@@ -10,6 +10,8 @@ need no padding: their kernels take any shape.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import bitpack
@@ -21,9 +23,11 @@ from repro_torch.kernels._build import LAUNCHES
 
 __all__ = [
     "LAUNCHES",
+    "GatedSources",
     "ext_gate_activity",
     "fused_weights",
     "gate_activity",
+    "gated_sources",
     "lif_step",
     "poisson_encode",
     "spike_timestep",
@@ -58,6 +62,30 @@ def gate_activity(src_p: torch.Tensor, *, block_batch: int,
         dim=1, dtype=torch.int32)
 
 
+class GatedSources(NamedTuple):
+    """Sources as :func:`spike_timestep` hands them to the kernel: padded
+    to the block multiples, with their gate scalars and unpadded size."""
+
+    padded: torch.Tensor    # (Bp, Sp) int32
+    activity: torch.Tensor  # (Bp / block_batch, Sp / block_src) int32
+    rows: int
+    width: int
+    block_batch: int
+
+
+def gated_sources(sources, *, block_batch: int = 8,
+                  block_src: int = _ts.BLOCK_SRC) -> GatedSources:
+    """Pad ``(B, S)`` sources and build their gate scalars once, for every
+    weight slice that reads the same rows (a mesh's neuron shards)."""
+    _check_block_src(block_src)
+    B, S = sources.shape
+    src_p = _pad_to(_pad_to(sources.to(torch.int32), 0, block_batch), 1,
+                    block_src).contiguous()
+    return GatedSources(src_p, gate_activity(src_p, block_batch=block_batch,
+                                             block_src=block_src),
+                        B, S, block_batch)
+
+
 def spike_timestep(sources, weights, v, *, decay_rate: float = 0.0,
                    threshold_raw: int, reset_mode: str = "zero",
                    decay_kind: str = "shift", decay_raw: int = 0,
@@ -65,7 +93,8 @@ def spike_timestep(sources, weights, v, *, decay_rate: float = 0.0,
                    block_src: int = _ts.BLOCK_SRC):
     """One fused, event-gated accelerator timestep.
 
-    sources: (B, S) int {0,1} spikes; weights: (S, P) int32 raw Q16.16;
+    sources: (B, S) int {0,1} spikes, or a :class:`GatedSources` of them
+    built with the same ``block_batch``; weights: (S, P) int32 raw Q16.16;
     v: (B, P) int32. Returns ``(v_out, spikes)``, each (B, P) int32.
 
     ``use_f32=False`` is bit-exact. ``use_f32=True`` sums each 128-source
@@ -77,25 +106,27 @@ def spike_timestep(sources, weights, v, *, decay_rate: float = 0.0,
     multiples (the engine pads its image once, so a step copies no
     weights); ``P`` is taken from ``v``.
     """
+    if not isinstance(sources, GatedSources):
+        sources = gated_sources(sources, block_batch=block_batch,
+                                block_src=block_src)
     _check_block_src(block_src)
-    B, S = sources.shape
+    if sources.block_batch != block_batch:
+        raise ValueError(f"sources were gated in tiles of "
+                         f"{sources.block_batch} rows, not {block_batch}")
+    B, S = sources.rows, sources.width
     P = v.shape[1]
     Sp = S + (-S) % block_src
     Pp = P + (-P) % 128
     if weights.shape[0] not in (S, Sp) or weights.shape[1] not in (P, Pp):
         raise ValueError(f"weights {tuple(weights.shape)} do not fit "
-                         f"sources {tuple(sources.shape)} and v "
-                         f"{tuple(v.shape)}")
-    src_p = _pad_to(_pad_to(sources.to(torch.int32), 0, block_batch), 1,
-                    block_src).contiguous()
+                         f"sources {(B, S)} and v {tuple(v.shape)}")
     w_p = _pad_to(_pad_to(weights, 0, block_src), 1, 128).contiguous()
     v_p = _pad_to(_pad_to(v, 0, block_batch), 1, 128).contiguous()
-    activity = gate_activity(src_p, block_batch=block_batch,
-                             block_src=block_src)
     v_out, spikes = _ts.spike_timestep(
-        activity, src_p, w_p, v_p, threshold_raw=threshold_raw,
-        reset_mode=reset_mode, decay_kind=decay_kind, decay_rate=decay_rate,
-        decay_raw=decay_raw, use_f32=use_f32, block_batch=block_batch)
+        sources.activity, sources.padded, w_p, v_p,
+        threshold_raw=threshold_raw, reset_mode=reset_mode,
+        decay_kind=decay_kind, decay_rate=decay_rate, decay_raw=decay_raw,
+        use_f32=use_f32, block_batch=block_batch)
     return v_out[:B, :P], spikes[:B, :P]
 
 

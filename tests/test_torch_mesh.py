@@ -21,6 +21,7 @@ with ``np.array_equal`` on int32. The mirrored JAX cases are
 import os
 import pathlib
 import re
+import types
 
 import numpy as np
 import pytest
@@ -165,8 +166,11 @@ def test_ensure_host_devices_touches_no_environment():
 
 def test_mesh_engine_requires_snn_axes():
     W = _weights(np.random.default_rng(0), 5, 8)
-    wrong = SpikeMesh((("cpu",),), axis_names=("data", "model"))
-    assert wrong.shape == {"data": 1, "model": 1}
+    # a mesh-like object that is not a spike mesh (other axis names)
+    wrong = types.SimpleNamespace(devices=((torch.device("cpu"),),),
+                                  axis_names=("data", "model"),
+                                  shape={"data": 1, "model": 1})
+    assert SpikeMesh((("cpu",),)).axis_names == ("neuron", "batch")
     with pytest.raises(ValueError, match="neuron"):
         MeshSpikeEngine(W, 5, mesh=wrong, decay=teng.DecaySpec.shift(0.25),
                         threshold_raw=THRESH, reset_mode="zero")
@@ -455,6 +459,64 @@ def test_mesh_engine_carries_fuse_steps(kn, kb, monkeypatch):
     assert _eq(want["v_final"], out["v_final"])
     assert len(calls) == 6 * kn * kb
     assert set(calls) == {(128, 128)}  # per-shard padded slices
+
+
+@pytest.mark.parametrize("kn,kb", [(2, 2), (2, 4)], ids=["2x2", "2x4"])
+def test_mesh_builds_sources_once_per_batch_shard(kn, kb, monkeypatch):
+    """The neuron shards of a batch shard on one device share one source
+    build and gate a step (kb builds a step on a host mesh, kn x kb kernel
+    calls); the columns are cut as the rules' weight spec says; neither
+    the re-hosted plain engine nor the mesh pads the whole image."""
+    rng = np.random.default_rng(31)
+    W = _weights(rng, 30, 40)
+    ext = _raster(rng, 5, 3, 30)
+    single = teng.SpikeEngine(W, 30, decay=teng.DecaySpec.shift(0.25),
+                              threshold_raw=THRESH, reset_mode="zero",
+                              backend="cuda", device="cpu")
+    sharded = single.to_mesh(_mesh(kn, kb))
+    assert sharded._w_spec == (None, "neuron")
+    assert sharded._ps == sharded._pp // kn == 20
+    builds, calls = [], []
+    gate, step = ops.gated_sources, ops.spike_timestep
+
+    def count_builds(*a, **k):
+        builds.append(a[0].shape)
+        return gate(*a, **k)
+
+    def count_calls(*a, **k):
+        calls.append(a[0])
+        return step(*a, **k)
+
+    monkeypatch.setattr(ops, "gated_sources", count_builds)
+    monkeypatch.setattr(ops, "spike_timestep", count_calls)
+    got = sharded.run(ext)
+    assert len(builds) == 5 * kb and len(calls) == 5 * kn * kb
+    assert set(builds) == {(-(-3 // kb), 30 + 40)}
+    assert all(isinstance(c, ops.GatedSources) for c in calls)
+    assert "_kernel_weights" not in vars(single)
+    assert "_kernel_weights" not in vars(sharded)
+    want = single.run(ext)
+    assert "_kernel_weights" in vars(single)  # padded at its first step
+    for k in ("spikes", "v_final"):
+        assert torch.equal(got[k], want[k])
+
+
+def test_gated_sources_keep_their_tile_height():
+    src = torch.from_numpy(_raster(np.random.default_rng(0), 1, 3, 20)[0])
+    W = torch.zeros((20, 4), dtype=torch.int32)
+    v = torch.zeros((3, 4), dtype=torch.int32)
+    gated = ops.gated_sources(src, block_batch=8)
+    assert gated.padded.shape == (8, 128) and gated.activity.shape == (1, 1)
+    assert (gated.rows, gated.width) == (3, 20)
+    for got, want in zip(
+            ops.spike_timestep(gated, W, v, threshold_raw=THRESH,
+                               decay_rate=0.25),
+            ops.spike_timestep(src, W, v, threshold_raw=THRESH,
+                               decay_rate=0.25)):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="tiles of 8 rows"):
+        ops.spike_timestep(gated, W, v, threshold_raw=THRESH,
+                           decay_rate=0.25, block_batch=1)
 
 
 # --------------------------------------------------------------------------
