@@ -97,7 +97,22 @@ in phases that each exit non-zero on failure:
    rounds, and a profiler breakdown of the host's work a step (time in
    torch ops and CUDA API calls against Python between them, the
    costliest ops; the 2 x 2 step's Chrome trace goes to
-   ``chiprun_out/``), beside the card's name and power limit.
+   ``chiprun_out/``), beside the card's name and power limit;
+9. trains the paper's 784-256-10 net on the card (``model_config(256)``,
+   T 25, batch 128, 300 steps of Adam at lr 2e-3 on procedural digits)
+   with its first step held against the host's (loss and gradients
+   allclose, TF32 switched on globally to show the training products
+   do not use it), ``make_sharded_train_step`` on two shards of card 0
+   against the unsharded step, and a run resumed from a port checkpoint
+   at step 150 against the uninterrupted one (atol 1e-6); then
+   ``evaluate_dual`` on 1024 procedural test digits at T 25 on "cuda" and
+   "cuda-f32": the hardware half (counts, predictions, raster, cycles,
+   SOPs) byte-equal to the card's and the host's "reference", with T
+   single-step launches each and no fused one. It prints software and
+   hardware accuracy, the deviation, the agreement, the device and wall
+   time of one train step (median of 21) and of one ``evaluate_dual``,
+   and pJ/SOP of the Table V energy model on the measured SOPs, beside
+   the card's name and power limit.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -2235,6 +2250,262 @@ def phase_mesh_times(np, torch, session_cls, feedforward, cfg):
 
 
 # --------------------------------------------------------------------------
+# phase 9: training and the paper's HW-vs-SW deviation on the card
+# --------------------------------------------------------------------------
+TRAIN_HIDDEN = 256   # the paper's 784-256-10 net
+EVAL_DIGITS = 1024   # procedural test digits for evaluate_dual
+RESUME_AT = 150      # the checkpoint step of the resumed run
+TRAIN_SHARDS = 2     # shards of card 0 for make_sharded_train_step
+GRAD_RTOL = 1e-4     # card vs host grads: rtol, and atol GRAD_RTOL x max|g|
+LOSS_RTOL = 1e-5     # card vs host loss (float sums in another order)
+STEP_TIMES = 21      # train steps timed, median
+ADAM_EPS = 1e-8      # optimizers.adam's default eps
+
+
+def grads_close(np, got, want, what) -> float:
+    """|got - want| <= GRAD_RTOL * (|want| + max|want|) per leaf; returns
+    the worst ratio of the difference to that tolerance."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.detach().cpu().numpy(), w.detach().cpu().numpy()
+        tol = GRAD_RTOL * (np.abs(w) + np.abs(w).max())
+        worst = max(worst, float((np.abs(g - w) / tol).max()))
+    check(worst <= 1.0, f"{what}: grads differ by {worst:.3f} x tolerance")
+    return worst
+
+
+def first_step_close(np, got, want, m_want, lr, eps, what) -> float:
+    """Params after Adam's first step, ``p - lr * g / (|g| + eps)`` with
+    ``g = m / (1 - b1)`` the clipped gradient: a gradient ``delta =
+    GRAD_RTOL * (|g| + max|g|)`` apart moves the update by at most ``lr *
+    min(2, eps * delta / (max(|g| - delta, 0) + eps)^2)``; plus one float32
+    rounding of a param in [-1, 1] (2^-23). Returns the worst ratio."""
+    worst = 0.0
+    for a, b, m in zip(got, want, m_want):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        g = np.abs(m.cpu().numpy().astype(np.float64)) / 0.1
+        delta = GRAD_RTOL * (g + g.max())
+        bound = lr * np.minimum(2.0, eps * delta / (
+            np.maximum(g - delta, 0.0) + eps) ** 2) + 2.0 ** -23
+        worst = max(worst, float((np.abs(a - b) / bound).max()))
+    check(worst <= 1.0, f"{what}: params {worst:.3f} x the first step's "
+          f"bound apart")
+    return worst
+
+
+def median_times_ms(torch, fn, n) -> tuple[float, float]:
+    """Median over ``n`` calls (after one warm-up) of the device time
+    between CUDA events around a call and of its synchronized wall time."""
+    fn()
+    torch.cuda.synchronize()
+    dev, wall = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return sorted(dev)[n // 2], sorted(wall)[n // 2]
+
+
+def phase_training(np, torch, ops, cfg, card, train_steps=None) -> dict:
+    """Train 784-256-10 on the card (T 25, batch 128, 300 steps, lr 2e-3,
+    procedural digits); its first step against the host's; a checkpointed
+    resume; the data-parallel step on two shards of card 0; and
+    ``evaluate_dual`` on 1024 test digits on "cuda" and "cuda-f32", the
+    hardware half byte-equal to the card's and the host's "reference"."""
+    import dataclasses
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core import coding, energy, prng
+    from repro_torch.data import mnist
+    from repro_torch.snn import model as sm
+    from repro_torch.snn import train as st
+    from repro_torch.training import optimizers
+    from repro_torch.tree import tree_map
+
+    tcfg = st.TrainConfig(model=cfg.model_config(TRAIN_HIDDEN))
+    if train_steps:
+        tcfg = dataclasses.replace(tcfg, train_steps=train_steps)
+    B, T, n = tcfg.batch_size, tcfg.num_steps_time, tcfg.train_steps
+    resume_at = min(RESUME_AT, n // 2)
+    lr = tcfg.lr
+    opt = optimizers.adam(lr)
+    k0, key = prng.split(prng.key(tcfg.seed))
+    p_host = sm.init_params(k0, tcfg.model, device="cpu")
+    p_card = sm.init_params(k0, tcfg.model, device="cuda")
+    init_diff = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(p_card, p_host))
+    check(init_diff <= 1e-6, f"init_params card vs host: {init_diff}")
+    p0 = [w.cuda() for w in p_host]  # both sides start from the host's
+    batches = list(mnist.batches("train", B, n, seed=0))
+    _, x0, y0 = batches[0]
+    xh, yh = torch.from_numpy(x0), torch.from_numpy(y0)
+    xc, yc = xh.cuda(), yh.cuda()
+    k = prng.fold_in(key, 0)
+
+    # the first step, card against host, with TF32 switched on globally:
+    # the training products must not use it
+    spikes_h = coding.poisson_encode(k, xh, T)
+    spikes_c = coding.poisson_encode(k, xc, T)
+    check(torch.equal(spikes_c.cpu(), spikes_h), "train spikes card != host")
+    old_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        g_h, m_h = st.loss_grads(p_host, spikes_h, yh, tcfg)
+        g_c, m_c = st.loss_grads(p0, spikes_c, yc, tcfg)
+        step = st.make_train_step(tcfg, opt)
+        ph, sh, _ = step(p_host, opt.init(p_host), k, xh, yh)
+        pc, sc, mc = step(p0, opt.init(p0), k, xc, yc)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+    loss_rel = abs(float(m_c["loss"]) / float(m_h["loss"]) - 1)
+    check(loss_rel <= LOSS_RTOL, f"first step loss card vs host {loss_rel}")
+    check(float(m_c["acc"]) == float(m_h["acc"]), "first step acc")
+    g_worst = grads_close(np, g_c, g_h, "first step card vs host")
+    p_worst = first_step_close(np, pc, ph, sh["m"], lr, ADAM_EPS,
+                               "first step card vs host")
+    log(f"first train step, card vs host (TF32 on globally): loss "
+        f"{float(m_c['loss']):.6f} vs {float(m_h['loss']):.6f} (rel "
+        f"{loss_rel:.2e} <= {LOSS_RTOL}), grads within {g_worst:.3f} of "
+        f"rtol {GRAD_RTOL} + atol {GRAD_RTOL} x max|g|, params within "
+        f"{p_worst:.3f} of the first step's bound; init_params card vs "
+        f"host {init_diff:.2e}")
+
+    # data-parallel: two shards of card 0 against the unsharded step
+    sharded = st.make_sharded_train_step(tcfg, opt, ["cuda:0"] * TRAIN_SHARDS)
+    ps, _, ms = sharded(p0, opt.init(p0), k, xc, yc)
+    s_rel = abs(float(ms["loss"]) / float(mc["loss"]) - 1)
+    check(s_rel <= LOSS_RTOL, f"sharded loss {s_rel}")
+    s_worst = first_step_close(np, ps, pc, sc["m"], lr, ADAM_EPS,
+                               "sharded vs unsharded")
+    log(f"make_sharded_train_step on {TRAIN_SHARDS} shards of card 0 == "
+        f"unsharded: loss rel {s_rel:.2e}, params within {s_worst:.3f} of "
+        f"the first step's bound")
+
+    # the train step's device and wall time (median of STEP_TIMES)
+    s0 = opt.init(p0)
+    step_ms = median_times_ms(torch, lambda: step(p0, s0, k, xc, yc),
+                              STEP_TIMES)
+    _, _, step_busy_us = device_and_wall_us(
+        torch, lambda: step(p0, s0, k, xc, yc), 5)
+
+    # train, then resume from a checkpoint at RESUME_AT
+    t0 = time.perf_counter()
+    p_full, _, m_full = st.train(tcfg, iter(batches), device="cuda",
+                                 log_every=50, log_fn=log)
+    train_s = time.perf_counter() - t0
+    check(all(float(w.abs().max()) <= tcfg.model.weight_clip
+              for w in p_full), "trained weights outside the clip")
+    p_half, s_half, _ = st.train(tcfg, iter(batches[:resume_at]),
+                                 device="cuda", log_every=0)
+    like = {"params": p_half, "opt": s_half}
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, resume_at, like)
+        restored, _ = ckpt.load(d, resume_at, like=like, device_tree=tree_map(
+            lambda x: x.device, like))
+    p_res, _, _ = st.train(tcfg, iter(batches[resume_at:]),
+                           params=restored["params"],
+                           opt_state=restored["opt"], device="cuda",
+                           log_every=0)
+    resume_diff = max(float((a - b).abs().max())
+                      for a, b in zip(p_res, p_full))
+    check(resume_diff <= 1e-6, f"resumed run {resume_diff} off the "
+          f"uninterrupted one")
+    log(f"trained {n} steps on the card in {train_s:.1f} s (last batch "
+        f"loss {float(m_full['loss']):.4f}, acc {float(m_full['acc']):.3f});"
+        f" resumed from a checkpoint at step {resume_at}: max |diff| "
+        f"{resume_diff:.2e} (atol 1e-6)")
+
+    # evaluate_dual: the hardware half on the kernels, == the references
+    x, y = mnist.load_or_generate("test", EVAL_DIGITS, seed=1)
+    host = st.evaluate_dual([w.cpu() for w in p_full], tcfg.model, x, y,
+                            num_steps_time=T, backend="reference",
+                            device="cpu")
+    results, launches = {}, {}
+    for backend in ("reference", "cuda", "cuda-f32"):
+        reset_launches(ops)  # just before the path
+        res = st.evaluate_dual(p_full, tcfg.model, x, y, num_steps_time=T,
+                               backend=backend, device="cuda")
+        torch.cuda.synchronize()
+        launches[backend] = dict(ops.LAUNCHES)  # just after it
+        results[backend] = res
+        for ref_name, ref in (("host reference", host),
+                              ("card reference", results["reference"])):
+            for kk in ("output_counts", "spikes", "cycles", "sops",
+                       "row_fetches"):
+                check(torch.equal(res["hw_counts"][kk].cpu(),
+                                  ref["hw_counts"][kk].cpu()),
+                      f"evaluate_dual {backend}: {kk} != {ref_name}")
+            check(res["hardware_acc"] == ref["hardware_acc"],
+                  f"evaluate_dual {backend}: hardware_acc != {ref_name}")
+        check(abs(res["software_acc"] - host["software_acc"]) <= 0.01,
+              f"evaluate_dual {backend}: software_acc card "
+              f"{res['software_acc']} vs host {host['software_acc']}")
+    for backend in ("cuda", "cuda-f32"):
+        got = launches[backend]
+        check(got["spike_timestep"] == T and got["spike_timestep_fused"] == 0,
+              f"evaluate_dual {backend} launched {got}")
+    check(launches["reference"]["spike_timestep"] == 0,
+          f"evaluate_dual reference launched {launches['reference']}")
+    log(f"evaluate_dual, {EVAL_DIGITS} digits x T {T}: cuda and cuda-f32 "
+        f"== card and host reference in counts, predictions, raster, "
+        f"cycles and SOPs; LAUNCHES cuda {launches['cuda']}, cuda-f32 "
+        f"{launches['cuda-f32']}, reference {launches['reference']}")
+    res = results["cuda"]
+    hw = {kk: v.cpu() for kk, v in res["hw_counts"].items()}
+    uj = energy.EnergyModel.calibrated().energy_uj(
+        energy.counts_from_run(hw))
+    def evaluate():
+        st.evaluate_dual(p_full, tcfg.model, x, y, num_steps_time=T,
+                         backend="cuda", device="cuda")
+
+    eval_ms = median_times_ms(torch, evaluate, 3)
+    _, _, eval_busy_us = device_and_wall_us(torch, evaluate, 2)
+    out = {
+        "software_acc": res["software_acc"],
+        "hardware_acc": res["hardware_acc"],
+        "deviation_pct": res["deviation_pct"],
+        "agreement": res["agreement"],
+        "host_software_acc": host["software_acc"],
+        "sops": float(hw["sops"].sum()),
+        "pj_per_sop_system": uj["pj_per_sop_system"],
+        "pj_per_sop_compute": uj["pj_per_sop_compute"],
+        "train_step_device_ms": step_ms[0],
+        "train_step_wall_ms": step_ms[1],
+        "train_step_busy_ms": step_busy_us / 1e3,
+        "evaluate_dual_device_ms": eval_ms[0],
+        "evaluate_dual_wall_ms": eval_ms[1],
+        "evaluate_dual_busy_ms": eval_busy_us / 1e3,
+        "train_s": train_s,
+        "resume_max_abs_diff": resume_diff,
+        "launches": launches["cuda"]["spike_timestep"]
+        + launches["cuda-f32"]["spike_timestep"],
+    }
+    log(f"784-{TRAIN_HIDDEN}-10 T {T}: software_acc {out['software_acc']:.4f}"
+        f", hardware_acc {out['hardware_acc']:.4f}, deviation_pct "
+        f"{out['deviation_pct']:+.4f}, agreement {out['agreement']:.4f} "
+        f"({card})")
+    log(f"time one train step (batch {B}, T {T}): device {step_ms[0]:.3f} ms "
+        f"between events, wall {step_ms[1]:.3f} ms, median of {STEP_TIMES}; "
+        f"device busy {step_busy_us / 1e3:.3f} ms "
+        f"({100 * step_busy_us / 1e3 / step_ms[1]:.1f} % of wall) "
+        f"({card})")
+    log(f"time one evaluate_dual ({EVAL_DIGITS} digits x T {T}, cuda): "
+        f"device {eval_ms[0]:.1f} ms between events, wall {eval_ms[1]:.1f} "
+        f"ms, median of 3; device busy {eval_busy_us / 1e3:.1f} ms "
+        f"({100 * eval_busy_us / 1e3 / eval_ms[1]:.1f} % of wall) ({card})")
+    log(f"energy (Table V model) on the measured {out['sops']:.0f} SOPs: "
+        f"{out['pj_per_sop_system']:.3f} pJ/SOP system incl. static, "
+        f"{out['pj_per_sop_compute']} pJ/SOP compute ({card})")
+    return out
+
+
+# --------------------------------------------------------------------------
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -2328,6 +2599,9 @@ def main() -> None:
     mesh_times, mesh_host = phase_mesh_times(
         np, torch, AcceleratorSession, feedforward, cfg)
 
+    log("phase 9: training and the paper's HW-vs-SW deviation on the card")
+    trained = phase_training(np, torch, ops, cfg, card)
+
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     for what, (dev_us, wall_us, busy_us) in [*event_times.items(),
                                              ("Cerebra-S step", s_step)]:
@@ -2393,6 +2667,8 @@ def main() -> None:
                                      if k != "top"}
                               for what, b in mesh_host.items()},
         "mesh_bench_us": mesh_bench,
+        "evaluate_dual_launches": trained["launches"],
+        "training": trained,
         "card": card,
     }, {
         "name": "spike_timestep_fused",

@@ -8,8 +8,10 @@ default 32 x 32 Cerebra-H geometry; the paper's LIF).
 from repro_torch.core.cerebra_h import CerebraHConfig
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.mapping import ClusterGeometry
+from repro_torch.snn.model import SNNModelConfig
 
-__all__ = ["ACCELERATOR", "HIDDEN_SIZES", "LIF", "TIMESTEPS", "layer_sizes"]
+__all__ = ["ACCELERATOR", "HIDDEN_SIZES", "LIF", "TIMESTEPS", "layer_sizes",
+           "model_config"]
 
 HIDDEN_SIZES = (16, 32, 64, 128, 256)
 TIMESTEPS = (25, 50, 75, 100)
@@ -27,3 +29,8 @@ LIF = LIFParams(decay_rate=0.1, threshold=1.0, reset_mode="zero")
 def layer_sizes(hidden: int) -> tuple[int, int, int]:
     """The 784-hidden-10 MNIST net of the paper."""
     return (784, int(hidden), 10)
+
+
+def model_config(hidden: int) -> SNNModelConfig:
+    """The 784-hidden-10 MNIST net with the paper's LIF, for training."""
+    return SNNModelConfig(layer_sizes=layer_sizes(hidden), params=LIF)

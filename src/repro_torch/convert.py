@@ -22,9 +22,10 @@ from repro_torch.core.mapping import (
 )
 from repro_torch.core.network import SNNetwork
 from repro_torch.events.aer import AERStream
+from repro_torch.tree import tree_map
 
-__all__ = ["aer_stream", "carry", "geometry", "lif_params", "network",
-           "program"]
+__all__ = ["adam_state", "aer_stream", "carry", "geometry", "lif_params",
+           "network", "program", "snn_params"]
 
 
 def lif_params(*, decay_rate: float, threshold: float, reset_mode: str,
@@ -105,3 +106,19 @@ def aer_stream(*, addrs: np.ndarray, count, total, shape,
         count=torch.tensor(int(count), dtype=torch.int32, device=device),
         total=torch.tensor(int(total), dtype=torch.int32, device=device),
         shape=tuple(int(d) for d in shape))
+
+
+def snn_params(weights, device="cpu") -> list[torch.Tensor]:
+    """A spiking MLP's params (the JAX package's list of ``(fan_in,
+    fan_out)`` arrays, as numpy) as float32 tensors on ``device``."""
+    return [torch.from_numpy(np.array(w, np.float32, copy=True)).to(device)
+            for w in weights]
+
+
+def adam_state(state, device="cpu") -> dict:
+    """An optimizer state of the JAX package (``{"step", "m", "v"}`` or
+    ``{"step", "mu"}``, its leaves as numpy) as the port's: the same tree,
+    each leaf a tensor of its dtype on ``device`` (``step`` a 0-d
+    int32)."""
+    return tree_map(
+        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device), state)

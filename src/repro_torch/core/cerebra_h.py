@@ -36,6 +36,8 @@ __all__ = [
     "run",
 ]
 
+MAX_FREQ_MHZ = 96.24  # paper §VII-B: Cerebra-H critical path 10.3904 ns
+
 
 @dataclasses.dataclass(frozen=True)
 class CerebraHConfig:

@@ -22,9 +22,11 @@ __all__ = [
     "FixedPointFormat",
     "Q16_16",
     "SHIFT_DECAY_RATES",
+    "from_fixed",
     "fx_mul",
     "nearest_shift_decay",
     "np_to_fixed",
+    "quantize_weights",
     "shift_decay",
     "to_fixed",
     "wrap_int32",
@@ -82,6 +84,21 @@ def to_fixed(x, fmt: FixedPointFormat = Q16_16, *, saturate: bool = True):
         hi = (1 << (fmt.int_bits + fmt.frac_bits)) - 1
         r = torch.clamp(r, lo, hi)
     return r.to(torch.int32)
+
+
+def from_fixed(x, fmt: FixedPointFormat = Q16_16) -> torch.Tensor:
+    """Dequantize raw int32 fixed point to float32 (``x / 2^frac_bits``,
+    exact for ``|x| < 2^24`` and one correctly rounded divide past it)."""
+    return torch.as_tensor(x).to(torch.int32).to(torch.float32) / fmt.scale
+
+
+def quantize_weights(w, fmt: FixedPointFormat = Q16_16):
+    """Quantize a float weight matrix to the 32-bit hardware format.
+
+    Returns (raw int32 weights, dequantized float32 reference).
+    """
+    raw = to_fixed(w, fmt)
+    return raw, from_fixed(raw, fmt)
 
 
 def fx_mul(a: torch.Tensor, b: int, fmt: FixedPointFormat = Q16_16):

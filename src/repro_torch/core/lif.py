@@ -2,8 +2,9 @@
 
 Twin of :mod:`repro.core.lif` for the serving slice: the LIF parameters,
 the single fire/reset definition every datapath shares, the power-on
-state, the bit-exact fixed-point step and the float32 software-reference
-step. The surrogate-gradient training step waits for the training slice.
+state, the bit-exact fixed-point step, the float32 software-reference
+step, and the surrogate-gradient training step (:func:`surrogate_spike`,
+an autograd Function, and :func:`lif_step_train`).
 
 Reset modes (paper §IV-B): ``hold`` keeps the membrane on a spike,
 ``zero`` clears it, ``subtract`` removes the threshold.
@@ -21,11 +22,14 @@ from repro_torch.core import fixedpoint as fxp
 
 __all__ = [
     "LIFParams",
+    "LIFState",
     "RESET_MODES",
     "fire_reset",
     "lif_init",
     "lif_step_fixed",
     "lif_step_float",
+    "lif_step_train",
+    "surrogate_spike",
 ]
 
 ResetMode = Literal["hold", "zero", "subtract"]
@@ -49,6 +53,10 @@ class LIFParams:
     @property
     def threshold_raw(self) -> int:
         return int(round(self.threshold * self.fmt.scale))
+
+
+class LIFState:
+    """Namespace marker; state is a plain dict: {'v': tensor}."""
 
 
 def lif_init(shape, *, fixed: bool = False, device="cpu") -> dict:
@@ -107,4 +115,56 @@ def lif_step_float(state: dict, syn_input: torch.Tensor, params: LIFParams):
     threshold = float(np.float32(params.threshold))
     v_new = state["v"] * beta + syn_input
     v_out, spikes = fire_reset(v_new, threshold, params.reset_mode)
+    return {"v": v_out}, spikes
+
+
+# --------------------------------------------------------------------------
+# Surrogate gradient (training): the fast-sigmoid surrogate of Zenke &
+# Ganguli, as the twin's ``jax.custom_vjp``
+# --------------------------------------------------------------------------
+
+class _SurrogateSpike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v_minus_thr, slope):
+        ctx.save_for_backward(v_minus_thr)
+        ctx.slope = float(np.float32(slope))
+        return (v_minus_thr >= 0.0).to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        (v,) = ctx.saved_tensors
+        denom = 1.0 + ctx.slope * torch.abs(v)
+        return g / (denom * denom), None
+
+
+def surrogate_spike(v_minus_thr: torch.Tensor,
+                    slope: float = 25.0) -> torch.Tensor:
+    """Heaviside spike ``(v >= 0)`` as float32, with the fast-sigmoid
+    surrogate gradient ``g / (1 + slope * |v|)^2``; no gradient for
+    ``slope``."""
+    return _SurrogateSpike.apply(v_minus_thr, slope)
+
+
+def lif_step_train(state: dict, syn_input: torch.Tensor, params: LIFParams,
+                   slope: float = 25.0):
+    """Differentiable LIF step for BPTT surrogate-gradient training.
+
+    ``v * beta + syn``, spike on ``v_new - threshold``, then the reset with
+    its gate detached (the twin's ``stop_gradient``): ``zero`` multiplies
+    by ``1 - spikes``, ``subtract`` removes ``spikes * threshold``,
+    ``hold`` keeps ``v_new``. Returns ``({'v': v_out}, spikes)``.
+    """
+    beta = float(np.float32(params.beta))
+    threshold = float(np.float32(params.threshold))
+    v_new = state["v"] * beta + syn_input
+    spikes = surrogate_spike(v_new - threshold, slope)
+    if params.reset_mode == "zero":
+        v_out = v_new * (1.0 - spikes.detach())
+    elif params.reset_mode == "subtract":
+        v_out = v_new - spikes.detach() * threshold
+    elif params.reset_mode == "hold":
+        v_out = v_new
+    else:
+        raise ValueError(f"unknown reset mode {params.reset_mode!r}; "
+                         f"expected one of {RESET_MODES}")
     return {"v": v_out}, spikes

@@ -40,6 +40,8 @@ __all__ = [
     "ClusterGeometry",
     "Placement",
     "place_contiguous",
+    "place_random",
+    "place_greedy",
     "row_usage",
     "check_capacity",
     "communication_profile",
@@ -111,6 +113,54 @@ def place_contiguous(net: SNNetwork, geom: ClusterGeometry) -> Placement:
     feedforward nets, since layers are numbered contiguously)."""
     _require_fits(net, geom)
     return Placement(geom, np.arange(net.n_neurons))
+
+
+def place_random(net: SNNetwork, geom: ClusterGeometry, seed: int = 0
+                 ) -> Placement:
+    _require_fits(net, geom)
+    rng = np.random.default_rng(seed)
+    slots = rng.permutation(geom.n_physical)[: net.n_neurons]
+    return Placement(geom, slots)
+
+
+def place_greedy(net: SNNetwork, geom: ClusterGeometry) -> Placement:
+    """Locality-aware greedy placement.
+
+    Orders neurons so that neurons sharing presynaptic sources land in the
+    same cluster (one SRAM row then serves up to 32 destinations at once,
+    and spike packets stay on the local L1 router). Strategy: process
+    layers in order (feedforward locality is already contiguous); within a
+    layer, sort neurons by their dominant source cluster so recurrent nets
+    also cluster by connectivity.
+    """
+    _require_fits(net, geom)
+    order: list[int] = []
+    slices = net.layer_slices or ((0, net.n_neurons),)
+    W = net.weights
+    for lo, hi in slices:
+        idx = np.arange(lo, hi)
+        if len(order) == 0:
+            order.extend(idx.tolist())
+            continue
+        # dominant presynaptic *neuron* block of each candidate (inputs are
+        # handled by external_broadcast rows; neuron sources drive NoC hops)
+        src = np.abs(W[net.n_inputs :, lo:hi])  # (n_neurons, width)
+        buckets = np.add.reduceat(
+            src,
+            np.arange(0, src.shape[0], geom.neurons_per_cluster),
+            axis=0,
+        )
+        dom = np.argmax(buckets, axis=0) if buckets.size else np.zeros(len(idx))
+        order.extend(idx[np.argsort(dom, kind="stable")].tolist())
+    return Placement(geom, _slots(order))
+
+
+def _slots(order: list[int]) -> np.ndarray:
+    """Assign consecutive physical slots in the given processing order."""
+    slots = np.empty(len(order), np.int64)
+    for phys, logical in enumerate(order):
+        slots[logical] = phys
+    return slots
 
 
 def _require_fits(net: SNNetwork, geom: ClusterGeometry) -> None:

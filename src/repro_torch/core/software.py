@@ -15,28 +15,14 @@ are exact in float32 in any order.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from repro_torch.core.lif import lif_step_float
 from repro_torch.core.network import SNNetwork
-from repro_torch.device import resolve_device
+from repro_torch.device import ieee_fp32_matmul, resolve_device
 
 __all__ = ["run_software"]
-
-
-@contextlib.contextmanager
-def _ieee_fp32_matmul():
-    """cuBLAS float32 products in full float32 (no TF32) for the body,
-    whatever the caller's global setting; the setting is restored after."""
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
 
 
 def run_software(net: SNNetwork, ext_spikes, *, device="cuda") -> dict:
@@ -60,7 +46,7 @@ def run_software(net: SNNetwork, ext_spikes, *, device="cuda") -> dict:
     v = torch.zeros((B, N), dtype=torch.float32, device=dev)
     prev = torch.zeros((B, N), dtype=torch.float32, device=dev)
     spikes = torch.empty((T, B, N), dtype=torch.float32, device=dev)
-    with _ieee_fp32_matmul():
+    with ieee_fp32_matmul():
         for t in range(T):
             sources = torch.cat([ext[t], prev], dim=-1)  # (B, n_in + N)
             syn = sources @ W

@@ -2,10 +2,11 @@
 
 Twin of :mod:`repro.data`:
 
+  mnist  — procedural MNIST (or real IDX files when present)
   events — synthetic event-camera (DVS-gesture-style) sparse spike clips
 
-The procedural MNIST digits (``mnist``) and the LM token streams (``lm``)
-wait for their slices (ROADMAP Queue 1 items 11 and 12).
+The LM token streams (``lm``) wait for their slice (ROADMAP Queue 1 item
+12).
 """
 
-from repro_torch.data import events  # noqa: F401
+from repro_torch.data import events, mnist  # noqa: F401

@@ -1,10 +1,13 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection shared by the port's entry points, and the float32
+product setting its float paths share."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["ieee_fp32_matmul", "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
@@ -23,3 +26,16 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"unsupported device {str(device)!r}; "
                          f"expected 'cuda' or 'cpu'")
     return dev
+
+
+@contextlib.contextmanager
+def ieee_fp32_matmul():
+    """cuBLAS float32 products in full float32 (no TF32) for the body,
+    whatever the caller's global setting; the setting is restored after.
+    TF32 would round the operands to 10 mantissa bits."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

@@ -17,7 +17,10 @@ software baseline under a global TF32 setting; and the front door: a
 carry snapshot taken on the card equals the host's byte for byte and
 continues the stream on either, and the frontend's pump thread serves on
 the card what the host serves; and the mesh: 2 x 2 and 2 x 4 meshes whose
-shards share the card equal the unsharded host run.
+shards share the card equal the unsharded host run; and training: a train
+step's loss and gradients on the card equal the host's under a global
+TF32 setting, and ``evaluate_dual``'s hardware half on the kernel
+backends equals the host's reference.
 """
 
 import pathlib
@@ -561,3 +564,65 @@ def test_mesh_on_the_card_equals_the_host(card, shape, backend, n_phys):
     assert torch.equal(dc["v"].cpu(), hc["v"])
     dev.set_carry_rows(dc, B - 1, hc["v"][0], hc["spikes"][0])
     assert torch.equal(dev.carry_rows(dc, B - 1)[0].cpu(), hc["v"][0])
+
+
+def _small_train_config():
+    from repro_torch.core.lif import LIFParams
+    from repro_torch.snn.model import SNNModelConfig
+    from repro_torch.snn.train import TrainConfig
+
+    return TrainConfig(model=SNNModelConfig(layer_sizes=(784, 32, 10),
+                                            params=LIFParams(decay_rate=0.1)),
+                       num_steps_time=10, lr=3e-3, batch_size=32)
+
+
+def test_train_step_on_the_card_equals_the_host(card):
+    """One train step's loss and gradients on the card against the host
+    (rtol 1e-5; gradients rtol 1e-4 + atol 1e-4 x max|g|), with TF32
+    switched on globally: the training products do not use it."""
+    from repro_torch.core import coding
+    from repro_torch.data import mnist
+    from repro_torch.snn import model as sm
+    from repro_torch.snn import train as st
+
+    cfg = _small_train_config()
+    params = sm.init_params(0, cfg.model, device="cpu")
+    (_, x, y), = mnist.batches("train", cfg.batch_size, 1, seed=0)
+    k = prng.fold_in(prng.key(1), 0)
+    sp = coding.poisson_encode(k, torch.from_numpy(x), cfg.num_steps_time)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        gh, mh = st.loss_grads(params, sp, torch.from_numpy(y), cfg)
+        gc, mc = st.loss_grads([w.to(card) for w in params], sp.to(card),
+                               torch.from_numpy(y).to(card), cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    np.testing.assert_allclose(float(mc["loss"]), float(mh["loss"]),
+                               rtol=1e-5)
+    for a, b in zip(gh, gc):
+        a = a.numpy()
+        np.testing.assert_allclose(b.cpu().numpy(), a, rtol=1e-4,
+                                   atol=1e-4 * np.abs(a).max())
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-f32"])
+def test_evaluate_dual_on_the_card_equals_the_host(card, backend):
+    """``evaluate_dual``'s hardware half on the kernel backends of the
+    card byte-equal to the host's reference, T single-step launches."""
+    from repro_torch.data import mnist
+    from repro_torch.snn import model as sm
+    from repro_torch.snn import train as st
+
+    cfg = _small_train_config()
+    params = sm.init_params(0, cfg.model, device="cpu")
+    x, y = mnist.load_or_generate("test", 64, seed=1)
+    host = st.evaluate_dual(params, cfg.model, x, y, num_steps_time=10,
+                            backend="reference", device="cpu")
+    before = ops.LAUNCHES["spike_timestep"]
+    got = st.evaluate_dual([w.to(card) for w in params], cfg.model, x, y,
+                           num_steps_time=10, backend=backend, device=card)
+    assert ops.LAUNCHES["spike_timestep"] - before == 10
+    for k in ("output_counts", "spikes", "cycles", "sops", "row_fetches"):
+        assert torch.equal(got["hw_counts"][k].cpu(), host["hw_counts"][k])
+    assert got["hardware_acc"] == host["hardware_acc"]

@@ -121,3 +121,27 @@ def test_lif_step_fixed_matches_jax():
                                    torch.from_numpy(syn), tp)
     assert _eq(js["v"], ts["v"]) and _eq(jspk, tspk)
     assert tp.threshold_raw == jp.threshold_raw
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_from_fixed_matches_jax(seed):
+    """``from_fixed`` on full-range int32 (past 2^24 the divide rounds)
+    and the round trip of ``tests/test_fixedpoint.py``: float32 equal."""
+    raw = _potentials(seed)
+    assert _eq(jfxp.from_fixed(jnp.asarray(raw)), tfxp.from_fixed(raw))
+    x = np.random.default_rng(seed).uniform(-30000, 30000, 512).astype(
+        np.float32)
+    back = tfxp.from_fixed(tfxp.to_fixed(x))
+    assert _eq(jfxp.from_fixed(jfxp.to_fixed(x)), back)
+    assert (np.abs(back.numpy() - x) <= 0.5 / 65536 + np.abs(x) * 1e-6).all()
+
+
+def test_quantize_weights_matches_jax():
+    """``tests/test_fixedpoint.py::test_quantize_weights_shapes`` in both
+    packages: raw values byte-equal, dequantized values equal."""
+    w = np.random.default_rng(0).normal(0, 0.3, (7, 5)).astype(np.float32)
+    jraw, jdeq = jfxp.quantize_weights(w)
+    traw, tdeq = tfxp.quantize_weights(w)
+    assert traw.shape == w.shape and traw.dtype == torch.int32
+    assert _eq(jraw, traw) and _eq(jdeq, tdeq)
+    np.testing.assert_allclose(tdeq.numpy(), w, atol=1.0 / 65536)

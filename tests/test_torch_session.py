@@ -108,6 +108,85 @@ def test_convert_then_compile_is_byte_equal():
             assert np.array_equal(np.asarray(jo[k]), to[k].numpy()), k
 
 
+def _placers():
+    """(name, JAX placer, port placer) for the three placements."""
+    from repro.core import mapping as jmap
+    from repro_torch.core import mapping as tmap
+
+    return [("contiguous", jmap.place_contiguous, tmap.place_contiguous),
+            ("greedy", jmap.place_greedy, tmap.place_greedy),
+            ("random 0", lambda n, g: jmap.place_random(n, g, 0),
+             lambda n, g: tmap.place_random(n, g, 0)),
+            ("random 7", lambda n, g: jmap.place_random(n, g, 7),
+             lambda n, g: tmap.place_random(n, g, 7))]
+
+
+@pytest.mark.parametrize("seed", [0, 3, 11])
+def test_placements_match_jax(seed):
+    """``tests/test_mapping.py:54-99`` in both packages: the same slots
+    byte for byte from each placer, on random recurrent nets and a
+    layered one; row usage and the communication profile equal; the
+    oversized net refused alike."""
+    from repro.core import mapping as jmap
+    from repro_torch.core import mapping as tmap
+
+    from conftest import make_random_net
+
+    rng = np.random.default_rng(seed)
+    nets = [make_random_net(rng, n_in=10, n_neurons=40, density=0.3),
+            make_random_net(rng, n_in=8, n_neurons=256, density=0.15),
+            _jax_net(seed, (30, 50, 20, 10))]
+    jg, tg = JGeom(), tch.CerebraHConfig().geometry
+    for jnet in nets:
+        tnet = _to_port(jnet)
+        for name, jplace, tplace in _placers():
+            jp, tp = jplace(jnet, jg), tplace(tnet, tg)
+            assert tp.neuron_to_physical.dtype == np.int64, name
+            assert np.array_equal(jp.neuron_to_physical,
+                                  tp.neuron_to_physical), name
+            for mode in ("strict", "external_broadcast"):
+                assert np.array_equal(jmap.row_usage(jnet, jp, mode),
+                                      tmap.row_usage(tnet, tp, mode)), name
+            jc = jmap.communication_profile(jnet, jp)
+            tc = tmap.communication_profile(tnet, tp)
+            for k in ("local_edges", "l1_edges", "l2_edges"):
+                assert jc[k] == tc[k], (name, k)
+    big = _to_port(make_random_net(rng, n_in=4, n_neurons=2000))
+    for _, _, tplace in _placers():
+        with pytest.raises(ValueError, match="physical"):
+            tplace(big, tg)
+
+
+@pytest.mark.parametrize("placer", ["greedy", "random 0", "random 7"])
+def test_compile_with_placement_serves_like_jax(placer):
+    """``compile_network(..., placement=)`` with each placer: the SRAM
+    image, output map and the served rasters, counts, cycles and SOPs
+    byte-equal to JAX's."""
+    jnet = _jax_net(5, (40, 70, 10))
+    tnet = _to_port(jnet)
+    jcfg_, tcfg_ = _configs(SMALL)
+    (_, jplace, tplace), = [p for p in _placers() if p[0] == placer]
+    jp = jch.compile_network(jnet, jcfg_,
+                             placement=jplace(jnet, jcfg_.geometry))
+    tp = tch.compile_network(tnet, tcfg_,
+                             placement=tplace(tnet, tcfg_.geometry))
+    assert np.array_equal(np.asarray(jp.weights_raw), tp.weights_raw.numpy())
+    assert np.array_equal(jp.output_map, tp.output_map)
+    ext = (np.random.default_rng(6).random((12, 3, 40)) < 0.3).astype(
+        np.int32)
+    jo = jch.run(jp, ext)
+    for backend in ("reference", "cuda"):
+        to = tch.run(tp, ext, backend=backend, device="cpu")
+        for k in ("spikes", "output_counts", "cycles", "sops",
+                  "row_fetches"):
+            assert np.array_equal(np.asarray(jo[k]), to[k].numpy()), (
+                backend, k)
+
+
+def test_cerebra_h_max_freq_matches_jax():
+    assert tch.MAX_FREQ_MHZ == jch.MAX_FREQ_MHZ == 96.24
+
+
 @pytest.mark.parametrize("backend", list(BACKEND_TABLE))
 def test_fused_engine_run_and_cost_model_match_jax(backend):
     nets = _two_models()
@@ -392,16 +471,18 @@ def test_default_device_entry_points_raise_without_a_card():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Importing every module of the port leaves no ``jax`` and no
-    ``repro`` / ``repro.*`` in ``sys.modules``."""
+    """Importing every module of the port leaves no ``jax``, no
+    ``repro`` / ``repro.*``, no ``msgpack`` and no ``ml_dtypes`` in
+    ``sys.modules`` (neither of the last two is installed on the card's
+    machine)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(n for n in sys.modules if n == 'jax' or "
-        "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'repro', 'msgpack', 'ml_dtypes'))\n"
         "new = ('repro_torch.events.trace', 'repro_torch.kernels._build', "
         "'repro_torch.kernels.spike_timestep_fused', "
         "'repro_torch.kernels.ref', 'repro_torch.kernels.lif_step', "
@@ -413,24 +494,30 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.obs.metrics', 'repro_torch.obs.tracing', "
         "'repro_torch.obs.timeline', 'repro_torch.obs.slo', "
         "'repro_torch.obs.flight', 'repro_torch.distributed.partition', "
-        "'repro_torch.distributed.spike_mesh')\n"
+        "'repro_torch.distributed.spike_mesh', 'repro_torch.tree', "
+        "'repro_torch.data.mnist', 'repro_torch.snn.model', "
+        "'repro_torch.snn.train', 'repro_torch.training.optimizers', "
+        "'repro_torch.training.loop', 'repro_torch.training.compression', "
+        "'repro_torch.checkpoint', 'repro_torch.checkpoint._msgpack')\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 47
+    assert int(r.stdout.strip()) >= 57
 
 
 def test_port_sources_name_neither_jax_nor_repro():
-    """No source line of the port, nor of chip_smoke.py, imports ``jax``
-    or the JAX package, even inside a function."""
+    """No source line of the port, nor of chip_smoke.py, imports ``jax``,
+    the JAX package, ``msgpack`` or ``ml_dtypes``, even inside a
+    function."""
     import re
 
     repo = pathlib.Path(__file__).resolve().parent.parent
     pattern = re.compile(
-        r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s))")
+        r"^\s*(import\s+(jax|repro|msgpack|ml_dtypes)\b(?!_)"
+        r"|from\s+(jax|repro|msgpack|ml_dtypes)(\.|\s))")
     files = sorted((repo / "src" / "repro_torch").rglob("*.py"))
     files.append(repo / "chip_smoke.py")
     assert len(files) > 47
