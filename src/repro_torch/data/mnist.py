@@ -22,7 +22,8 @@ import struct
 
 import numpy as np
 
-__all__ = ["load_or_generate", "batches", "render_digits", "GLYPHS"]
+__all__ = ["load_or_generate", "generate", "batches", "render_digits",
+           "GLYPHS"]
 
 # --------------------------------------------------------------------------
 # Per-class stroke skeletons in the unit square (x right, y down).
@@ -136,6 +137,13 @@ def load_or_generate(split: str, n: int, seed: int = 0
             return imgs, labs[:n].astype(np.int32)
         except (FileNotFoundError, ValueError):
             pass
+    return generate(split, n, seed)
+
+
+def generate(split: str, n: int, seed: int = 0
+             ) -> tuple[np.ndarray, np.ndarray]:
+    """The procedural split that :func:`load_or_generate` falls back to,
+    whatever IDX files exist."""
     base = 0 if split == "train" else 1_000_003
     rng = np.random.default_rng(seed + base)
     labels = rng.integers(0, 10, n).astype(np.int32)

@@ -126,3 +126,26 @@ def test_idx_files_load_like_jax(tmp_path, monkeypatch, compress):
     got = tmnist.load_or_generate("train", 8, seed=4)
     want = jmnist.load_or_generate("train", 8, seed=4)
     assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+def test_generate_is_the_procedural_split_whatever_idx_files_exist(
+        tmp_path, monkeypatch):
+    """``generate`` is the procedural fallback of ``load_or_generate``,
+    byte-equal to the twin's; IDX files under ``MNIST_DIR`` change what
+    ``load_or_generate`` returns and leave ``generate`` as it was."""
+    monkeypatch.delenv("MNIST_DIR", raising=False)
+    monkeypatch.chdir(tmp_path)
+    if jmnist._find_mnist_dir() is None:
+        want = jmnist.load_or_generate("test", 12, seed=1)
+        got = tmnist.generate("test", 12, seed=1)
+        assert _same(got[0], want[0]) and _same(got[1], want[1])
+    before = tmnist.generate("test", 12, seed=1)
+    labs = (np.arange(12) + 3) % 10
+    _write_idx(tmp_path / "t10k-images-idx3-ubyte",
+               np.zeros((12, 28, 28)), False)
+    _write_idx(tmp_path / "t10k-labels-idx1-ubyte", labs, False)
+    monkeypatch.setenv("MNIST_DIR", str(tmp_path))
+    assert _same(tmnist.load_or_generate("test", 12, seed=1)[1],
+                 labs.astype(np.int32))
+    after = tmnist.generate("test", 12, seed=1)
+    assert _same(after[0], before[0]) and _same(after[1], before[1])

@@ -424,8 +424,9 @@ def test_train_logs_and_entry_points_need_a_card_by_default():
 @pytest.mark.parametrize("n_shards", [1, 2, 4])
 def test_sharded_train_step_matches_unsharded(n_shards):
     """``make_sharded_train_step`` over ``n_shards`` repeated CPU devices:
-    three steps allclose to the unsharded step (params atol 1e-6, loss and
-    accuracy rtol 1e-6); a batch that does not split is refused."""
+    three steps allclose to the unsharded step (params atol 1e-6; loss,
+    accuracy and grad norm rtol 1e-5); a batch that does not split is
+    refused."""
     _, cfg = _cfgs(hidden=16, T=5)
     opt = topt.adam(cfg.lr)
     base = tt.make_train_step(cfg, opt)
