@@ -113,7 +113,26 @@ in phases that each exit non-zero on failure:
    hardware accuracy, the deviation, the agreement, the device and wall
    time of one train step (median of 21) and of one ``evaluate_dual``,
    and pJ/SOP of the Table V energy model on the measured SOPs, beside
-   the card's name and power limit.
+   the card's name and power limit;
+10. runs the paper's tables on the card through
+   ``repro_torch.benchmarks.run --fast`` (Table III, Table V, the S-vs-H
+   speedup and the five-width Table IV, the kernel backend "cuda"), with
+   exactly one single-step launch a timestep of Table V, both speedup
+   generations and every Table IV evaluation, and no fused one; every
+   Table IV row's hardware half byte-equal to the card's "reference",
+   Table V's counts and mW equal on "reference", the speedup's cycles
+   equal on "cuda-f32" and "reference", and Table V with
+   ``--measured-sop``. It prints the rows, the average deviation, compute
+   and system pJ/SOP, the SOPs counted on float-nonzero against quantized
+   synapses (ROADMAP fault 7) and the launches;
+11. drives the dense LM serving path at full width: granite-3-2b (40
+   layers, d 2048, 32 heads / 8 KV, vocab 49155), its param count against
+   its leaves; ``repro_torch.launch.serve --arch granite-3-2b --full`` in
+   bf16 with the launcher's defaults (12 requests, max-batch 4, max-new
+   16, max-seq 96), printing tokens/s, per-batch latency, the memory peak
+   and one decode step's device, busy and wall time; in float32 (IEEE
+   products) prefill + decode against the teacher-forced logits (rtol /
+   atol 2e-3); and a two-layer cut of full width, card against host.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -151,6 +170,12 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def check_no_jax() -> None:
+    check(not any(m == "jax" or m.startswith(("jax.", "repro."))
+                  or m == "repro" for m in sys.modules),
+          "the port pulled in jax or the JAX package")
 
 
 def reset_launches(ops) -> None:
@@ -2511,6 +2536,302 @@ def phase_training(np, torch, ops, cfg, card) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 10: the paper's tables on the card
+# --------------------------------------------------------------------------
+FAST_TABLE_V_STEPS = 50     # benchmarks/run.py --fast budgets
+FAST_SPEEDUP_STEPS = 25
+FAST_EVAL_N = 256
+TABLE_IV_T = 25             # the width sweep's (train_T, infer_T)
+TABLE_V_HIDDEN, TABLE_V_BATCH = 128, 64   # table_v_power's defaults
+HW_KEYS = ("output_counts", "spikes", "cycles", "sops", "row_fetches")
+
+
+def phase_tables(np, torch, ops, card) -> dict:
+    """``repro_torch.benchmarks.run --fast`` with Table III, Table V, the
+    S-vs-H speedup and the five-width Table IV on the card (the kernel
+    backend "cuda"), its launches counted around it; then Table V on
+    "reference" (counts and mW equal) and with ``--measured-sop``, the
+    speedup on "cuda-f32" and "reference" (cycles equal), and each Table
+    IV row's hardware half on the card's "reference" (byte-equal)."""
+    from repro_torch.benchmarks import run as brun
+    from repro_torch.benchmarks import speedup_s_vs_h as sp
+    from repro_torch.benchmarks import table_iv_accuracy as t4
+    from repro_torch.benchmarks import table_v_power as t5
+    from repro_torch.core import cerebra_h, coding, prng
+    from repro_torch.data import mnist
+    from repro_torch.events import trace
+    from repro_torch.snn.model import init_params, to_snnetwork
+
+    reset_launches(ops)  # just before the path
+    t0 = time.perf_counter()
+    out = brun.main(["--fast", "--only", "table_iii,table_v,speedup,table_iv",
+                     "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)  # just after it
+    rows = out["table_iv"]
+    check([r["hidden"] for r in rows] == list(t4.HIDDEN_SIZES),
+          f"table_iv rows {[r['hidden'] for r in rows]}")
+    want = (FAST_TABLE_V_STEPS + 2 * FAST_SPEEDUP_STEPS
+            + len(rows) * TABLE_IV_T)
+    check(launches["spike_timestep"] == want
+          and launches["spike_timestep_fused"] == 0,
+          f"the tables launched {launches}; want {want} single-step")
+    check(out["table_iii"][0][6] == 1.05, "Table III: SNAP-V's pJ/SOP")
+
+    # Table IV: every row's hardware half == the card's reference backend
+    for r in rows:
+        cfg = t4.cell_config(r["hidden"], r["train_T"], 0)
+        ref = t4.evaluate_cell(r["params"], cfg, r["infer_T"],
+                               eval_n=FAST_EVAL_N, backend="reference",
+                               device="cuda")
+        for k in HW_KEYS:
+            check(torch.equal(r["hw_counts"][k], ref["hw_counts"][k]),
+                  f"table_iv h{r['hidden']}: {k} cuda != reference")
+        check(r["hardware_acc"] == ref["hardware_acc"]
+              and r["software_acc"] == ref["software_acc"],
+              f"table_iv h{r['hidden']}: accuracy cuda != reference")
+        check(0.0 < r["software_acc"] <= 1.0 and 0.0 < r["hardware_acc"]
+              <= 1.0, f"table_iv h{r['hidden']}: accuracies {r}")
+    devs = [r["deviation_pct"] for r in rows]
+
+    # Table V: the reference backend gives the same counts and mW
+    tv = out["table_v"]
+    tv_ref = t5.main(["--steps", str(FAST_TABLE_V_STEPS), "--backend",
+                      "reference", "--device", "cuda"])
+    for f in ("sops", "row_fetches", "spike_packets", "cycles"):
+        check(getattr(tv["counts"], f) == getattr(tv_ref["counts"], f),
+              f"table_v {f}: cuda != reference")
+    check(tv["mw"] == tv_ref["mw"], "table_v mW: cuda != reference")
+    tv_m = t5.main(["--steps", str(FAST_TABLE_V_STEPS), "--measured-sop",
+                    "--device", "cuda"])
+    # ROADMAP fault 7: the measured SOPs price events by float-nonzero
+    # synapses; the trace's own count uses the quantized image
+    cfg5 = t5.model_config(TABLE_V_HIDDEN)
+    x, _ = mnist.load_or_generate("test", TABLE_V_BATCH, seed=0)
+    spikes = coding.poisson_encode(prng.key(1), torch.from_numpy(x).cuda(),
+                                   FAST_TABLE_V_STEPS, dtype=torch.int32)
+    prog = cerebra_h.compile_network(to_snnetwork(
+        init_params(prng.key(0), cfg5, device="cuda"), cfg5))
+    hw = cerebra_h.run(prog, spikes, backend="cuda", device="cuda")
+    rep = trace.trace_run(cerebra_h.make_engine(prog, "cuda", device="cuda"),
+                          spikes, hw["spikes"])
+    quantized_sops = rep.measured_sops
+    check(tv_m["counts"].sops >= quantized_sops,
+          "measured SOPs below the quantized synapses' count")
+
+    # speedup: the same cycles on every backend
+    spd = out["speedup"]
+    for backend in ("cuda-f32", "reference"):
+        other = sp.main(["--steps", str(FAST_SPEEDUP_STEPS), "--backend",
+                         backend, "--device", "cuda"])
+        for k in ("cycles_s", "cycles_h"):
+            check(np.array_equal(other[k], spd[k]),
+                  f"speedup {k}: {backend} != cuda")
+        check(other["report"] == spd["report"], f"speedup {backend} report")
+
+    res = {
+        "launches": launches["spike_timestep"],
+        "wall_s": wall_s,
+        "table_iv": [{k: r[k] for k in ("hidden", "train_T", "infer_T",
+                                        "software_acc", "hardware_acc",
+                                        "deviation_pct", "agreement")}
+                     for r in rows],
+        "avg_deviation_pp": float(np.mean(devs)),
+        "compute_pj_per_sop": float(tv["mw"]["compute_pj_per_sop"]),
+        "system_pj_per_sop": float(tv["uj"]["pj_per_sop_system"]),
+        "measured_system_pj_per_sop": float(
+            tv_m["uj"]["pj_per_sop_system"]),
+        "weight_memory_pct": float(tv["mw"]["weight_memory_pct"]),
+        "analytic_sops": float(tv_m["analytic"].sops),
+        "measured_sops": float(tv_m["counts"].sops),
+        "quantized_sops": int(quantized_sops),
+        "deltas_pct": {k: float(v) for k, v in tv_m["deltas"].items()},
+        "cycle_speedup": float(spd["report"].cycle_speedup),
+        "total_speedup": float(spd["report"].total_speedup),
+    }
+    for r in res["table_iv"]:
+        log(f"table_iv h{r['hidden']} T {r['train_T']}x{r['infer_T']} "
+            f"(procedural digits, 60 steps, {FAST_EVAL_N} test digits): "
+            f"software {r['software_acc']:.4f}, hardware "
+            f"{r['hardware_acc']:.4f}, deviation {r['deviation_pct']:+.4f} "
+            f"pp, agreement {r['agreement']:.4f} ({card})")
+    log(f"table_iv average deviation {res['avg_deviation_pp']:+.4f} pp over "
+        f"{len(rows)} widths (the paper: -2.62 on MNIST); hardware half == "
+        f"the card's reference on every row ({card})")
+    log(f"table_v ({TABLE_V_HIDDEN} hidden, B {TABLE_V_BATCH} x T "
+        f"{FAST_TABLE_V_STEPS}): compute {res['compute_pj_per_sop']:.4f} "
+        f"pJ/SOP, system {res['system_pj_per_sop']:.4f} pJ/SOP analytic, "
+        f"{res['measured_system_pj_per_sop']:.4f} measured; weight memory "
+        f"{res['weight_memory_pct']:.2f} % of power; SOPs analytic "
+        f"{res['analytic_sops']:.0f}, measured (float-nonzero synapses) "
+        f"{res['measured_sops']:.0f}, on quantized synapses "
+        f"{quantized_sops} ({card})")
+    log(f"speedup: cycles {res['cycle_speedup']:.4f}x, total "
+        f"{res['total_speedup']:.4f}x; cycles equal on cuda, cuda-f32 and "
+        f"reference ({card})")
+    log(f"tables: run.py --fast (4 sections) in {wall_s:.1f} s, "
+        f"{res['launches']} spike_timestep launches ({card})")
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 11: the dense LM serving path at full width
+# --------------------------------------------------------------------------
+LM_ARCH = "granite-3-2b"
+LM_CHECK = (2, 12, 6)       # B, S, prefill length of the teacher-forcing check
+LM_DECODE_TOL = 2e-3        # tests/test_models.py's prefill / decode rtol, atol
+LM_CUT_LAYERS = 2
+LM_CUT_TOL = 1e-3           # the cut's card vs host logits: rtol and atol
+LM_STEP_TIMES = 21          # decode steps timed, median
+LM_STEP_BATCH, LM_STEP_SEQ = 4, 48
+
+
+def worst_ratio(got, want, tol) -> float:
+    """max |got - want| / (tol + tol |want|) over all elements."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def phase_lm(np, torch, card) -> dict:
+    """granite-3-2b at full width on the card: the param count against the
+    leaves; ``launch.serve --full`` with the launcher's defaults in bf16
+    (tokens/s, per-batch latency, one decode step's device and wall time,
+    memory peak); float32 prefill + decode against teacher forcing (IEEE
+    float32 products); a two-layer cut, card against host."""
+    import dataclasses
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.device import ieee_fp32_matmul
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import LMHarness
+    from repro_torch.tree import flatten_with_paths, tree_map
+
+    mod = configs.get_arch(LM_ARCH)
+    cfg = mod.CONFIG
+    leaves = [t for _, t in flatten_with_paths(
+        LMHarness(LM_ARCH, cfg=cfg).param_shapes())]
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(n_params == cfg.param_count(),
+          f"{LM_ARCH}: {n_params} leaves != param_count {cfg.param_count()}")
+
+    # the launcher, bf16, its defaults (12 requests, max-batch 4, max-new
+    # 16, max-seq 96)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.main(["--arch", LM_ARCH, "--full", "--device", "cuda"])
+    torch.cuda.synchronize()
+    serve_peak = torch.cuda.max_memory_allocated()
+    server = res.pop("server")
+    n_tok = sum(len(t) for b in res["batches"] for t in b["tokens"])
+    check(n_tok == res["total_tokens"] == 12 * 16,
+          f"served {n_tok} tokens, want {12 * 16}")
+    check(all(0 <= int(t.min()) and int(t.max()) < cfg.vocab_size
+              for b in res["batches"] for t in b["tokens"]),
+          "a served token outside the vocabulary")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (LM_STEP_BATCH, LM_STEP_SEQ)).astype(np.int32))
+    tok, cache = server._prefill(server.params, toks.cuda(),
+                                 batch=LM_STEP_BATCH, seq=LM_STEP_SEQ)
+
+    def step():
+        server._decode_step(server.params, cache, tok, LM_STEP_SEQ)
+
+    step_ms = median_times_ms(torch, step, LM_STEP_TIMES)
+    _, _, step_busy_us = device_and_wall_us(torch, step, 5)
+    del server, cache, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32 at full width: prefill + decode == teacher forcing
+    torch.cuda.reset_peak_memory_stats()
+    model = mod.build(dataclasses.replace(cfg, dtype=torch.float32))
+    t0 = time.perf_counter()
+    params = model.init(prng.key(1), device="cuda")
+    torch.cuda.synchronize()
+    init32_s = time.perf_counter() - t0
+    B, S, k = LM_CHECK
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, S)).astype(
+        np.int32)).cuda()
+    with ieee_fp32_matmul(), torch.inference_mode():
+        full, _ = model.forward(params, {"tokens": toks})
+        check(bool(torch.isfinite(full).all()), "float32 logits not finite")
+        cache = model.init_cache(B, S, device="cuda")
+        logits, cache = model.prefill(params, {"tokens": toks[:, :k]},
+                                      cache)
+        decode_worst = worst_ratio(logits[:, 0], full[:, k - 1],
+                                   LM_DECODE_TOL)
+        for pos in range(k, S):
+            logits, cache = model.decode_step(
+                params, {"tokens": toks[:, pos:pos + 1]}, pos, cache)
+            decode_worst = max(decode_worst, worst_ratio(
+                logits[:, 0], full[:, pos], LM_DECODE_TOL))
+    f32_peak = torch.cuda.max_memory_allocated()
+    check(decode_worst <= 1.0, f"float32 prefill / decode off teacher "
+          f"forcing by {decode_worst:.3f} x the tolerance")
+    del params, cache, full, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a two-layer cut of full width, card against host
+    cut = mod.build(dataclasses.replace(cfg, dtype=torch.float32,
+                                        n_layers=LM_CUT_LAYERS))
+    p_card = cut.init(prng.key(2), device="cuda")
+    p_host = tree_map(lambda t: t.cpu(), p_card)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 8)).astype(
+        np.int32))
+    with ieee_fp32_matmul(), torch.inference_mode():
+        lc, _ = cut.forward(p_card, {"tokens": toks.cuda()})
+        lh, _ = cut.forward(p_host, {"tokens": toks})
+    cut_worst = worst_ratio(lc, lh, LM_CUT_TOL)
+    cut_abs = float((lc.cpu() - lh).abs().max())
+    check(cut_worst <= 1.0, f"the {LM_CUT_LAYERS}-layer cut: card vs host "
+          f"{cut_worst:.3f} x the tolerance")
+    del p_card, p_host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = {
+        "params": n_params, "param_bytes": param_bytes,
+        "init_s": res["init_s"], "init32_s": init32_s,
+        "serve_peak_bytes": serve_peak, "f32_peak_bytes": f32_peak,
+        "tokens_per_s": res["tokens_per_s"], "total_tokens": n_tok,
+        "wall_s": res["wall_s"],
+        "batch_latency_s": [b["latency_s"] for b in res["batches"]],
+        "batch_tokens_per_s": [b["tokens_per_s"] for b in res["batches"]],
+        "decode_step_device_ms": step_ms[0],
+        "decode_step_wall_ms": step_ms[1],
+        "decode_step_busy_ms": step_busy_us / 1e3,
+        "decode_worst": decode_worst, "cut_worst": cut_worst,
+        "cut_max_abs": cut_abs,
+    }
+    log(f"{LM_ARCH}: {n_params} params == param_count, {param_bytes} bytes "
+        f"in bf16; init {res['init_s']:.2f} s (bf16), {init32_s:.2f} s "
+        f"(float32) ({card})")
+    log(f"{LM_ARCH} serve (bf16, 12 requests, max-batch 4, max-new 16, "
+        f"max-seq 96): {n_tok} tokens in {res['wall_s']:.3f} s, "
+        f"{res['tokens_per_s']:.1f} tokens/s; per-batch latency "
+        + ", ".join(f"{t:.3f}" for t in out["batch_latency_s"])
+        + f" s; memory peak {serve_peak / 2**30:.2f} GiB ({card})")
+    log(f"{LM_ARCH} one decode step (B {LM_STEP_BATCH}, position "
+        f"{LM_STEP_SEQ} of a 96-slot cache, bf16): device {step_ms[0]:.3f} ms between events, wall {step_ms[1]:.3f} "
+        f"ms, median of {LM_STEP_TIMES}; device busy "
+        f"{step_busy_us / 1e3:.3f} ms ({100 * step_busy_us / 1e3 / step_ms[1]:.1f}"
+        f" % of wall) ({card})")
+    log(f"{LM_ARCH} float32 (IEEE products): prefill {k} + decode to {S} "
+        f"within {decode_worst:.4f} of rtol/atol {LM_DECODE_TOL} of the "
+        f"teacher-forced logits; memory peak {f32_peak / 2**30:.2f} GiB; "
+        f"{LM_CUT_LAYERS}-layer cut card vs host max |diff| {cut_abs:.3e}, "
+        f"{cut_worst:.4f} of rtol/atol {LM_CUT_TOL} ({card})")
+    return out
+
+
+# --------------------------------------------------------------------------
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -2538,9 +2859,7 @@ def main() -> None:
     from repro_torch.kernels import spike_timestep as ts
     from repro_torch.kernels import spike_timestep_fused as tsf
 
-    check(not any(m == "jax" or m.startswith(("jax.", "repro."))
-                  or m == "repro" for m in sys.modules),
-          "the port pulled in jax or the JAX package")
+    check_no_jax()
     # the plain versions' float32 products must not run in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2606,6 +2925,13 @@ def main() -> None:
 
     log("phase 9: training and the paper's HW-vs-SW deviation on the card")
     trained = phase_training(np, torch, ops, cfg, card)
+
+    log("phase 10: the paper's tables on the card")
+    tables = phase_tables(np, torch, ops, card)
+
+    log("phase 11: the dense LM serving path at full width on the card")
+    phase_lm(np, torch, card)
+    check_no_jax()
 
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     for what, (dev_us, wall_us, busy_us) in [*event_times.items(),
@@ -2674,6 +3000,8 @@ def main() -> None:
         "mesh_bench_us": mesh_bench,
         "evaluate_dual_launches": trained["launches"],
         "training": trained,
+        "tables_launches": tables["launches"],
+        "tables": tables,
         "card": card,
     }, {
         "name": "spike_timestep_fused",

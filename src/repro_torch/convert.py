@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import _host, _restore
 from repro_torch.core import cerebra_h
 from repro_torch.core.fixedpoint import FixedPointFormat, nearest_shift_decay
 from repro_torch.core.lif import LIFParams
@@ -25,7 +26,7 @@ from repro_torch.events.aer import AERStream
 from repro_torch.tree import tree_map
 
 __all__ = ["adam_state", "aer_stream", "carry", "geometry", "lif_params",
-           "network", "program", "snn_params"]
+           "lm_params", "network", "program", "snn_params"]
 
 
 def lif_params(*, decay_rate: float, threshold: float, reset_mode: str,
@@ -122,3 +123,12 @@ def adam_state(state, device="cpu") -> dict:
     int32)."""
     return tree_map(
         lambda a: torch.from_numpy(np.array(a, copy=True)).to(device), state)
+
+
+def lm_params(tree, device="cpu") -> dict:
+    """An LM param tree of the JAX package (nested dicts, its leaves as
+    numpy, bfloat16 included; the layers stacked on a leading L axis) as
+    the port's: the same tree, each leaf a tensor of its dtype on
+    ``device``. Leaves go through the checkpoint's codec, which restores
+    the dtypes numpy lacks from a same-width integer view."""
+    return tree_map(lambda a: _restore(*_host(a)).to(device), tree)

@@ -16,7 +16,12 @@ uses, as JAX computes them with 64-bit mode off and
   ``sqrt(2) * erfinv(u)``, ``u`` uniform on ``(nextafter(-1, 0), 1)``.
   The uniforms are JAX's bits and ``erf_inv`` is XLA's float32
   polynomial, so the normals agree with JAX's to rtol 1e-6, not always
-  bit for bit (``log1p`` differs in the last bit now and then).
+  bit for bit (``log1p``, taken in float64 so that every device gives
+  the same bits, differs from XLA's in the last bit now and then).
+
+Each element is hashed on its own flat index, so :func:`uniform` and
+:func:`normal` draw a large shape chunk by chunk (``_CHUNK`` indices at a
+time) into their output: the same bits, with bounded int64 temporaries.
 
 A key is a (2,) int64 tensor holding the two uint32 words. CPU torch has no
 uint32 shifts or compares, so every word is a uint32 held in int64 and is
@@ -85,12 +90,34 @@ def threefry2x32(k1: int, k2: int, x0: torch.Tensor,
     return x0, x1
 
 
-def _hash_iota(k: torch.Tensor, shape: tuple, device):
+def _hash_iota(k: torch.Tensor, shape: tuple, device, start: int = 0):
     """Both output words of threefry over the row-major flat index of
-    ``shape``, split into its high and low 32 bits."""
-    i = torch.arange(math.prod(shape), dtype=torch.int64,
+    ``shape`` (offset by ``start``), split into its high and low 32 bits."""
+    i = torch.arange(start, start + math.prod(shape), dtype=torch.int64,
                      device=device).reshape(shape)
     return threefry2x32(*_words(k), i >> 32, i & _U32)
+
+
+# Flat indices hashed at once by uniform / normal: each element is hashed
+# on its own counter (the partitionable threefry), so a large draw is made
+# chunk by chunk into its output and no int64 temporary exceeds 128 MiB.
+_CHUNK = 1 << 24
+
+
+def _chunked(fn, shape: tuple, device) -> torch.Tensor:
+    """``fn(start, n)`` (float32 values of flat indices ``start ..
+    start + n``) over ``shape``, one chunk of at most ``_CHUNK`` at a
+    time."""
+    if torch.device(device).type == "meta":  # shapes only: nothing drawn
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    total = math.prod(shape)
+    if total <= _CHUNK:
+        return fn(0, total).reshape(shape)
+    out = torch.empty(total, dtype=torch.float32, device=device)
+    for start in range(0, total, _CHUNK):
+        n = min(_CHUNK, total - start)
+        out[start:start + n] = fn(start, n)
+    return out.reshape(shape)
 
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
@@ -114,7 +141,13 @@ def uniform(k: torch.Tensor, shape=(), device=None) -> torch.Tensor:
     """``jax.random.uniform(k, shape)``: float32 on [0, 1), on ``device``
     (default: the key's)."""
     device = _check_key(k).device if device is None else device
-    bits1, bits2 = _hash_iota(k, tuple(shape), device)
+    return _chunked(lambda start, n: _uniform_flat(k, start, n, device),
+                    tuple(shape), device)
+
+
+def _uniform_flat(k: torch.Tensor, start: int, n: int, device):
+    """:func:`uniform`'s values at flat indices ``start .. start + n``."""
+    bits1, bits2 = _hash_iota(k, (n,), device, start)
     # 32 random bits, as jax.random.bits; their top 23 as the mantissa
     one_to_two = (((bits1 ^ bits2) >> 9) | 0x3F800000).to(torch.int32)
     return one_to_two.view(torch.float32) - 1.0
@@ -132,10 +165,19 @@ _ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
 
 def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``erf_inv`` polynomial on float32 ``x`` in (-1, 1),
-    evaluated with the same float32 ops (no FMA contraction)."""
-    w = -torch.log1p(-x * x)
+    evaluated with the same float32 ops (no FMA contraction).
+
+    ``log1p`` and ``sqrt`` are taken in float64 and rounded to float32:
+    the float32 ones of the host and of the card differ in the last bit
+    (CPU torch's float32 ``sqrt`` is not correctly rounded), and in the
+    tails, where a normal moves ~3e4 times its argument, that moved a
+    drawn weight by up to 7e-5 between the card and one host. Rounded
+    from float64, both give the correctly rounded float32 value."""
+    f64 = torch.float64
+    w = -torch.log1p(-(x * x).to(f64)).to(torch.float32)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5,
+                    torch.sqrt(w.to(f64)).to(torch.float32) - 3.0)
     p = None
     for a, b in zip(_ERFINV_W_LT_5, _ERFINV_W_GE_5):
         c = torch.where(lt, torch.tensor(a, dtype=torch.float32,
@@ -153,12 +195,19 @@ def normal(k: torch.Tensor, shape=(), device=None) -> torch.Tensor:
     JAX's float32 path: uniforms scaled onto ``[lo, 1)`` with ``lo =
     nextafter(-1, 0)`` (``u * (1 - lo) + lo``, each op rounded in float32,
     then ``max(lo, .)``; these are JAX's bits), then ``sqrt(2) *
-    erf_inv(u)`` with XLA's polynomial. ``log1p`` differs from XLA's in the
-    last bit now and then, so the normals agree with JAX's to rtol 1e-6
-    (2.4e-7 measured; ~95 % of them bit for bit), not exactly.
+    erf_inv(u)`` with XLA's polynomial. ``log1p`` (float64, rounded)
+    differs from XLA's float32 one in the last bit now and then, so the
+    normals agree with JAX's to rtol 1e-6 (2.4e-7 measured; ~95 % of them
+    bit for bit), not exactly; on the card and the host they are equal.
     """
+    device = _check_key(k).device if device is None else device
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     span = float(np.float32(1.0) - np.float32(lo))
-    u = uniform(k, shape, device)
-    u = torch.clamp_min(u * span + lo, lo)
-    return _erfinv_f32(u) * float(np.float32(np.sqrt(2.0)))
+    sqrt2 = float(np.float32(np.sqrt(2.0)))
+
+    def flat(start: int, n: int) -> torch.Tensor:
+        u = torch.clamp_min(_uniform_flat(k, start, n, device) * span + lo,
+                            lo)
+        return _erfinv_f32(u) * sqrt2
+
+    return _chunked(flat, tuple(shape), device)

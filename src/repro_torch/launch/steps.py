@@ -1,0 +1,112 @@
+"""LMHarness: per-(arch x shape) serving step functions and their shapes.
+
+Twin of the serving half of :mod:`repro.launch.steps`:
+
+  * ``param_shapes()``       — the params on the ``meta`` device (shapes
+    and dtypes, nothing drawn or allocated), where the twin uses
+    ``eval_shape``;
+  * ``token_shapes`` / ``cache_shapes`` — ``meta`` tensors standing in
+    for the decode inputs, as the twin's ``ShapeDtypeStruct``s do;
+  * ``make_prefill_step`` — build + fill KV caches;
+  * ``make_decode_step``  — one greedy token against the cache.
+
+The train step (microbatched accumulation + AdamW, with the harness's
+optimizer and microbatch fields) waits for ROADMAP Queue 1 item 12b and
+the shardings (with the EP / TP levers) for item 12c: both raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch import configs
+from repro_torch.configs.shapes import Shape
+from repro_torch.core import prng
+
+__all__ = ["LMHarness", "SkipCell"]
+
+_META = torch.device("meta")
+
+
+class SkipCell(Exception):
+    """Raised when an (arch x shape) cell is N/A (documented skip)."""
+
+
+@dataclasses.dataclass
+class LMHarness:
+    arch_id: str
+    cfg: Any = None
+
+    def __post_init__(self):
+        mod = configs.get_arch(self.arch_id)
+        self.cfg = self.cfg or mod.CONFIG
+        self.model = mod.build(self.cfg)
+
+    # ------------------------------------------------------------------
+    # shapes (no allocation anywhere)
+    # ------------------------------------------------------------------
+    def param_shapes(self) -> dict:
+        return self.model.init(prng.key(0), device=_META)
+
+    def check_cell(self, shape: Shape) -> None:
+        if shape.name == "long_500k" and not self.cfg.subquadratic:
+            raise SkipCell(
+                f"{self.arch_id} is pure full-attention; long_500k needs a "
+                f"sub-quadratic arch")
+
+    def cache_shapes(self, shape: Shape) -> dict:
+        self.check_cell(shape)
+        return self.model.init_cache(shape.global_batch, shape.seq_len,
+                                     device=_META)
+
+    def token_shapes(self, shape: Shape) -> dict:
+        """Decode-step inputs (one new token)."""
+        B = shape.global_batch
+        return {"tokens": torch.empty((B, 1), dtype=torch.int32,
+                                      device=_META)}
+
+    # ------------------------------------------------------------------
+    # steps
+    # ------------------------------------------------------------------
+    def make_train_step(self, shape: Shape, mesh=None):
+        raise NotImplementedError(
+            "the LM train step is not ported yet: ROADMAP Queue 1 item 12b "
+            "(LM training)")
+
+    def make_prefill_step(self, shape: Shape, *, device="cuda"):
+        """``prefill(params, batch) -> (last logits, cache)`` with a fresh
+        cache of ``shape`` on ``device``."""
+        B, S = shape.global_batch, shape.seq_len
+        model = self.model
+
+        @torch.inference_mode()
+        def prefill(params, batch):
+            cache = model.init_cache(B, S, device=device)
+            return model.prefill(params, batch, cache)
+
+        return prefill
+
+    def make_decode_step(self, shape: Shape):
+        """``decode(params, cache, token_in, pos) -> (next token (B, 1)
+        int32, cache)``: one greedy token."""
+        model = self.model
+
+        @torch.inference_mode()
+        def decode(params, cache, token_in, pos):
+            logits, cache = model.decode_step(params, dict(token_in), pos,
+                                              cache)
+            next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            return next_tok[:, None], cache
+
+        return decode
+
+    # ------------------------------------------------------------------
+    # shardings
+    # ------------------------------------------------------------------
+    def shardings(self, shape: Shape, mesh, kind: str):
+        raise NotImplementedError(
+            "LM shardings are not ported yet: ROADMAP Queue 1 item 12c (the "
+            "LM partitioner)")

@@ -1,0 +1,510 @@
+"""The dense LM serving path of the port (``repro_torch.models``,
+``configs``, ``serving.BatchServer`` / ``Scheduler``, ``launch.steps`` /
+``serve``) against the JAX package, on REDUCED configs of both ported
+archs (granite-3-2b: GQA, swiglu; granite-20b: MQA, gelu), on the CPU.
+
+* The registry: each ported arch's CONFIG and REDUCED equal JAX's field for
+  field (``dtype`` mapped); every JAX arch that is not ported is named in
+  ``NOT_PORTED`` below and raises, naming its ROADMAP item.
+* ``init(prng.key(s))`` against ``init(jax.random.key(s))``: float32
+  leaves to rtol 1e-6 (``prng.normal``), bfloat16 ones within one bf16
+  step; ``param_count`` equals JAX's and the leaves' count.
+* On JAX's params (``convert.lm_params``), float32: ``forward`` logits to
+  rtol / atol 1e-5, ``prefill`` + ``decode_step`` against the
+  teacher-forced logits at JAX's 2e-3, ``loss`` to rtol 1e-6.
+* bfloat16: one layer body byte-equal to JAX's op-by-op (eager) body
+  in at least ``LAYER_SAME_MIN`` of its elements;
+  the stack to ``BF16_TOL`` (XLA fuses the jitted scan body and drops
+  some bf16 roundings the eager ops keep); ``BatchServer`` greedy tokens
+  equal to JAX's up to the first step where JAX's own top-2 logit margin
+  is within ``BF16_MARGIN``.
+* ``rms_norm`` forward and backward equal to ``jax.vjp`` in float32, and
+  bf16 at its boundaries; ``Scheduler.next_batch`` order; the launcher on
+  ``--device cpu``.
+"""
+
+import dataclasses
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.launch.steps import LMHarness as JHarness  # noqa: E402
+from repro.models import common as jcommon  # noqa: E402
+from repro.serving import BatchServer as JServer  # noqa: E402
+from repro.serving import Request as JRequest  # noqa: E402
+from repro.serving import Scheduler as JScheduler  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs.shapes import SHAPES  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.launch.steps import LMHarness, SkipCell  # noqa: E402
+from repro_torch.models import common as tcommon  # noqa: E402
+from repro_torch.serving import BatchServer, Request, Scheduler  # noqa: E402
+from repro_torch.tree import flatten_with_paths, tree_map  # noqa: E402
+
+ARCHS = ["granite-3-2b", "granite-20b"]
+# the JAX archs the port does not have yet, each waiting for ROADMAP Queue 1
+# item 12a (other block families); an arch may leave this list only by
+# entering the port's ARCHS
+NOT_PORTED = ["mixtral-8x7b", "llama4-scout-17b-a16e", "gemma3-12b",
+              "minicpm3-4b", "whisper-large-v3", "qwen2-vl-2b",
+              "zamba2-1.2b", "rwkv6-7b"]
+F32_TOL = 1e-5        # forward logits, float32: rtol and atol
+DECODE_TOL = 2e-3     # prefill / decode vs teacher forcing (JAX's own)
+# bf16 logits, port vs JAX's jitted forward: |d| <= atol + rtol |jax|,
+# 2^-5 each (two bf16 steps at 2..4; 2 measured at most)
+BF16_TOL = 2.0 ** -5
+# a greedy token is compared where JAX's top-2 margin exceeds BF16_MARGIN:
+# twice the largest |port - JAX| logit gap on the decode path (2^-5
+# measured over 8 steps x 4 rows, logits up to 3.7), so neither side's
+# rounding can swap the top two
+BF16_MARGIN = 2 * 2.0 ** -5
+# one bf16 layer, port vs JAX's eager body: the share of byte-equal
+# elements (granite-3-2b: all; granite-20b's gelu: 1533 of 1536 at least)
+LAYER_SAME_MIN = 0.99
+DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
+
+
+def _cfgs(arch, dtype=None):
+    jmod, tmod = jconfigs.get_arch(arch), tconfigs.get_arch(arch)
+    jcfg, tcfg = jmod.REDUCED, tmod.REDUCED
+    if dtype is not None:
+        jcfg = dataclasses.replace(jcfg, dtype=dtype)
+        tcfg = dataclasses.replace(tcfg, dtype=DTYPES[dtype])
+    return jmod.build(jcfg), tmod.build(tcfg)
+
+
+def _jax_params(jmodel, seed):
+    jp = jmodel.init(jax.random.key(seed))
+    return jp, convert.lm_params(jax.tree.map(np.asarray, jp))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _tokens(seed, shape, vocab):
+    return np.random.default_rng(seed).integers(1, vocab, shape).astype(
+        np.int32)
+
+
+# --------------------------------------------------------------------------
+# registry
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("which", ["CONFIG", "REDUCED"])
+def test_config_equals_jax_field_for_field(arch, which):
+    jc = getattr(jconfigs.get_arch(arch), which)
+    tc = getattr(tconfigs.get_arch(arch), which)
+    assert [f.name for f in dataclasses.fields(tc)] == [
+        f.name for f in dataclasses.fields(jc)]
+    for f in dataclasses.fields(jc):
+        a, b = getattr(jc, f.name), getattr(tc, f.name)
+        if f.name == "dtype":
+            assert DTYPES[a] == b
+        else:
+            assert a == b, f.name
+    for prop in ("padded_vocab", "resolved_head_dim", "q_group"):
+        assert getattr(tc, prop) == getattr(jc, prop), prop
+    assert tc.param_count() == jc.param_count()
+    assert tc.active_param_count() == jc.active_param_count()
+
+
+def test_registry_lists_every_jax_arch():
+    assert sorted(tconfigs.list_archs()) == sorted(ARCHS)
+    assert sorted(jconfigs.list_archs()) == sorted(ARCHS + NOT_PORTED)
+    assert sorted(tconfigs.NOT_PORTED) == sorted(NOT_PORTED)
+    assert tconfigs.SHAPES == {k: tconfigs.Shape(**dataclasses.asdict(v))
+                               for k, v in jconfigs.SHAPES.items()}
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_unported_arch_raises_with_its_item(arch):
+    with pytest.raises(NotImplementedError, match="item 12a"):
+        tconfigs.get_arch(arch)
+    with pytest.raises(NotImplementedError, match="item 12a"):
+        LMHarness(arch)
+
+
+def test_unknown_arch_is_a_key_error():
+    with pytest.raises(KeyError):
+        tconfigs.get_arch("no-such-arch")
+
+
+def test_unported_blocks_and_steps_raise():
+    base = tconfigs.get_arch("granite-3-2b").REDUCED
+    for change in (dict(moe=tcommon.MoEConfig(4, 2)),
+                   dict(mla=tcommon.MLAConfig()), dict(mrope=True),
+                   dict(block_kind="mamba2"), dict(block_kind="rwkv6"),
+                   dict(frontend="embeddings"), dict(split_cache=True),
+                   dict(attn_scores_bf16=True)):
+        with pytest.raises(NotImplementedError, match="item 12a"):
+            tconfigs.get_arch("granite-3-2b").build(
+                dataclasses.replace(base, **change))
+    with pytest.raises(NotImplementedError, match="item 12c"):
+        tconfigs.get_arch("granite-3-2b").build(
+            dataclasses.replace(base, seq_parallel_attn=True))
+    h = LMHarness("granite-3-2b", cfg=base)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        h.make_train_step(SHAPES["train_4k"])
+    with pytest.raises(NotImplementedError, match="item 12c"):
+        h.shardings(SHAPES["decode_32k"], None, "decode")
+    with pytest.raises(NotImplementedError, match="item 12a"):
+        tcommon.apply_mrope(None, None, 16, 1e4)
+    with pytest.raises(SkipCell):
+        h.cache_shapes(SHAPES["long_500k"])
+
+
+# --------------------------------------------------------------------------
+# params
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_init_matches_jax(arch, dtype):
+    jmodel, tmodel = _cfgs(arch, dtype)
+    for seed in (0, 3):
+        jl = jax.tree_util.tree_flatten_with_path(
+            jmodel.init(jax.random.key(seed)))[0]
+        tl = flatten_with_paths(tmodel.init(prng.key(seed), device="cpu"))
+        assert [jax.tree_util.keystr(p) for p, _ in jl] == [
+            "".join(f"['{k}']" for k in p) for p, _ in tl]
+        for (_, a), (_, b) in zip(jl, tl):
+            assert b.dtype == DTYPES[dtype] and tuple(b.shape) == a.shape
+            if dtype == jnp.float32:
+                np.testing.assert_allclose(b.numpy(), np.asarray(a),
+                                           rtol=1e-6, atol=1e-7)
+            else:  # one float32 ulp apart can round to adjacent bf16 steps
+                a, b = _np(a), _np(b)
+                np.testing.assert_allclose(b, a, rtol=2.0 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("which", ["CONFIG", "REDUCED"])
+def test_param_count_equals_the_leaves(arch, which):
+    cfg = getattr(tconfigs.get_arch(arch), which)
+    shapes = LMHarness(arch, cfg=cfg).param_shapes()
+    leaves = [t for _, t in flatten_with_paths(shapes)]
+    assert all(t.device.type == "meta" and t.dtype == cfg.dtype
+               for t in leaves)
+    assert sum(t.numel() for t in leaves) == cfg.param_count()
+
+
+def test_chunked_normal_equals_jax(monkeypatch):
+    """A draw made chunk by chunk (a small ``_CHUNK``, ragged last chunk)
+    gives the same normals as one made at once, and JAX's to rtol 1e-6."""
+    k = prng.key(7)
+    whole, whole_u = prng.normal(k, (3, 1000)), prng.uniform(k, (777,))
+    monkeypatch.setattr(prng, "_CHUNK", 256)
+    chunked = prng.normal(k, (3, 1000))
+    assert torch.equal(chunked, whole)
+    assert torch.equal(prng.uniform(k, (777,)), whole_u)
+    np.testing.assert_allclose(
+        chunked.numpy(), np.asarray(jax.random.normal(jax.random.key(7),
+                                                      (3, 1000))),
+        rtol=1e-6, atol=1e-7)
+
+
+def test_lm_params_keeps_dtypes_and_values():
+    jmodel, _ = _cfgs("granite-20b")
+    jp = jmodel.init(jax.random.key(0))
+    tp = convert.lm_params(jax.tree.map(np.asarray, jp))
+    for (_, a), (_, b) in zip(jax.tree_util.tree_flatten_with_path(jp)[0],
+                              flatten_with_paths(tp)):
+        assert b.dtype == torch.bfloat16
+        assert np.array_equal(np.asarray(a).view(np.int16),
+                              b.view(torch.int16).numpy())
+
+
+# --------------------------------------------------------------------------
+# float32 numerics
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_and_loss_match_jax_f32(arch):
+    jmodel, tmodel = _cfgs(arch, jnp.float32)
+    jp, tp = _jax_params(jmodel, 1)
+    toks = _tokens(0, (2, 12), jmodel.cfg.vocab_size)
+    jl, jaux = jmodel.forward(jp, {"tokens": jnp.asarray(toks)})
+    tl, taux = tmodel.forward(tp, {"tokens": torch.from_numpy(toks)})
+    assert tl.shape == jl.shape and tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=F32_TOL,
+                               atol=F32_TOL)
+    assert float(taux) == float(jaux) == 0.0
+    batch = {"tokens": toks, "targets": np.roll(toks, -1, axis=1)}
+    jloss, jparts = jmodel.loss(jp, jax.tree.map(jnp.asarray, batch))
+    tloss, tparts = tmodel.loss(tp, {k: torch.from_numpy(v)
+                                     for k, v in batch.items()})
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-6)
+    for k in ("ce", "z_loss"):
+        np.testing.assert_allclose(float(tparts[k]), float(jparts[k]),
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_matches_forward_f32(arch):
+    """``tests/test_models.py::test_prefill_decode_matches_forward`` on the
+    port, with JAX's teacher-forced logits as the reference too."""
+    jmodel, tmodel = _cfgs(arch, jnp.float32)
+    jp, tp = _jax_params(jmodel, 1)
+    B, S, k = 2, 12, 6
+    toks = _tokens(0, (B, S), jmodel.cfg.vocab_size)
+    full_t, _ = tmodel.forward(tp, {"tokens": torch.from_numpy(toks)})
+    full_j, _ = jmodel.forward(jp, {"tokens": jnp.asarray(toks)})
+    cache = tmodel.init_cache(B, S, device="cpu")
+    logits_k, cache = tmodel.prefill(
+        tp, {"tokens": torch.from_numpy(toks[:, :k])}, cache)
+    for ref in (full_t.numpy(), np.asarray(full_j)):
+        np.testing.assert_allclose(logits_k[:, 0].numpy(), ref[:, k - 1],
+                                   rtol=DECODE_TOL, atol=DECODE_TOL)
+    for pos in range(k, S):
+        before = {n: v.clone() for n, v in cache.items()}
+        step_logits, new = tmodel.decode_step(
+            tp, {"tokens": torch.from_numpy(toks[:, pos:pos + 1])}, pos,
+            cache)
+        assert all(torch.equal(cache[n], before[n]) for n in cache), (
+            "decode_step wrote into the caller's cache")
+        cache = new
+        for ref in (full_t.numpy(), np.asarray(full_j)):
+            np.testing.assert_allclose(
+                step_logits[:, 0].numpy(), ref[:, pos], rtol=DECODE_TOL,
+                atol=DECODE_TOL, err_msg=f"{arch} decode at pos {pos}")
+
+
+# --------------------------------------------------------------------------
+# bfloat16 numerics and serving
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ARCHS)
+def test_layer_body_bf16_equals_jax_eager(arch):
+    """One bf16 layer, op by op: the port's body gives JAX's eager body's
+    bytes (the activations are XLA's op-by-op bf16 formulas) but for a
+    few elements where a float32 ``tanh`` or ``exp`` of the two libraries
+    rounds to the next bf16 step: at least LAYER_SAME_MIN equal, all within
+    two steps."""
+    jmodel, tmodel = _cfgs(arch)
+    jp, tp = _jax_params(jmodel, 0)
+    toks = _tokens(0, (2, 12), jmodel.cfg.vocab_size)
+    jx = jnp.take(jp["embed"]["table"], jnp.asarray(toks), axis=0)
+    tx = tp["embed"]["table"][torch.from_numpy(toks).long()]
+    pos_j = jnp.broadcast_to(jnp.arange(12, dtype=jnp.int32)[None], (2, 12))
+    pos_t = torch.arange(12, dtype=torch.int32)[None].expand(2, 12)
+    for i in range(jmodel.cfg.n_layers):
+        jl = jax.tree.map(lambda a: a[i], jp["layers"])
+        tl = tree_map(lambda t: t[i], tp["layers"])
+        jy, _, _ = jmodel._layer_body(jx, jl, jnp.int32(0), None, None,
+                                      pos_j, None)
+        ty, _ = tmodel._layer_body(tx, tl, 0, None, None, pos_t)
+        assert ty.dtype == torch.bfloat16
+        same = np.asarray(jy).view(np.int16) == ty.view(torch.int16).numpy()
+        assert same.mean() >= LAYER_SAME_MIN, f"layer {i}"
+        np.testing.assert_allclose(_np(ty), _np(jy), rtol=2.0 ** -6,
+                                   atol=2.0 ** -14, err_msg=f"layer {i}")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_bf16_within_tolerance(arch):
+    jmodel, tmodel = _cfgs(arch)
+    jp, tp = _jax_params(jmodel, 0)
+    for seed in (0, 1):
+        toks = _tokens(seed, (2, 12), jmodel.cfg.vocab_size)
+        jl, _ = jmodel.forward(jp, {"tokens": jnp.asarray(toks)})
+        tl, _ = tmodel.forward(tp, {"tokens": torch.from_numpy(toks)})
+        assert tl.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(tl), _np(jl), rtol=BF16_TOL,
+                                   atol=BF16_TOL)
+
+
+def _requests(rng, n, vocab, max_new):
+    out = []
+    for uid in range(n):
+        plen = int(rng.integers(4, 40))
+        out.append((uid, rng.integers(1, vocab, plen).astype(np.int32),
+                    max_new))
+    return out
+
+
+def _jax_margins(jmodel, jp, batch, max_seq, n_steps):
+    """JAX's top-2 logit margin at each greedy step of
+    ``BatchServer.serve`` for ``batch``: its prefill and decode path,
+    on its own tokens."""
+    B = len(batch)
+    S = max(len(r.prompt) for r in batch)
+    toks = np.zeros((B, S), np.int32)
+    for i, r in enumerate(batch):
+        toks[i, S - len(r.prompt):] = r.prompt
+    cache = jmodel.init_cache(B, max_seq)
+    logits, cache = jax.jit(jmodel.prefill)(
+        jp, {"tokens": jnp.asarray(toks)}, cache)
+    decode = jax.jit(jmodel.decode_step)
+    margins = []
+    for step in range(n_steps):
+        lg = np.asarray(logits[:, -1].astype(jnp.float32))
+        top2 = np.sort(lg, axis=-1)[:, -2:]
+        margins.append(top2[:, 1] - top2[:, 0])
+        tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+        logits, cache = decode(jp, {"tokens": tok}, jnp.int32(S + step),
+                               cache)
+    return np.stack(margins, 1)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_batch_server_greedy_tokens_match_jax(arch):
+    """A ``Scheduler``-batched request set through both ``BatchServer``s
+    (bf16): the same batches, and each request's tokens equal up to the
+    first step where JAX's top-2 margin is within BF16_MARGIN; at least
+    one request compared to its end."""
+    jmodel, tmodel = _cfgs(arch)
+    jp, tp = _jax_params(jmodel, 0)
+    max_seq, max_new = 64, 8
+    reqs = _requests(np.random.default_rng(0), 8, jmodel.cfg.vocab_size,
+                     max_new)
+    js, ts = JScheduler(4), Scheduler(4)
+    for uid, prompt, n in reqs:
+        js.submit(JRequest(uid=uid, prompt=prompt, max_new_tokens=n))
+        ts.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+    jserver = JServer(jmodel, jp, max_seq=max_seq)
+    tserver = BatchServer(tmodel, tp, max_seq=max_seq, device="cpu")
+    whole = 0
+    while True:
+        jb, tb = js.next_batch(), ts.next_batch()
+        assert [r.uid for r in tb] == [r.uid for r in jb]
+        if not jb:
+            break
+        jc, tc = jserver.serve(jb), tserver.serve(tb)
+        margins = _jax_margins(jmodel, jp, jb, max_seq, max_new)
+        for i, (a, b) in enumerate(zip(jc, tc)):
+            assert (b.uid, b.prompt_len) == (a.uid, a.prompt_len)
+            assert b.tokens.dtype == np.int32 and len(b.tokens) == len(
+                a.tokens)
+            close = margins[i] <= BF16_MARGIN
+            n = int(np.argmax(close)) if close.any() else len(a.tokens)
+            # the first n tokens had clear margins; token n is JAX's pick
+            # among near-ties, so it is compared only if the port agrees
+            assert np.array_equal(b.tokens[:n], a.tokens[:n]), (b.uid, n)
+            whole += n == len(a.tokens)
+        stats = tserver.throughput_stats(tc)
+        assert stats["generated_tokens"] == sum(len(c.tokens) for c in tc)
+    assert whole >= 1
+
+
+def test_batch_server_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    _, tmodel = _cfgs("granite-3-2b")
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        tmodel.init(prng.key(0))
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        BatchServer(tmodel, {}, max_seq=8)
+
+
+# --------------------------------------------------------------------------
+# rms_norm, the scheduler, the harness, the launcher
+# --------------------------------------------------------------------------
+def test_rms_norm_matches_jax_vjp():
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (2, 5, 24)).astype(np.float32)
+    scale = rng.normal(0, 0.1, (24,)).astype(np.float32)
+    g = rng.normal(0, 1, (2, 5, 24)).astype(np.float32)
+    jy, vjp = jax.vjp(lambda a, s: jcommon.rms_norm(a, s, 1e-6),
+                      jnp.asarray(x), jnp.asarray(scale))
+    jdx, jds = vjp(jnp.asarray(g))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ts = torch.from_numpy(scale).requires_grad_(True)
+    ty = tcommon.rms_norm(tx, ts, 1e-6)
+    tdx, tds = torch.autograd.grad(ty, (tx, ts), torch.from_numpy(g))
+    for a, b in ((jy, ty), (jdx, tdx), (jds, tds)):
+        np.testing.assert_allclose(b.detach().numpy(), np.asarray(a),
+                                   rtol=1e-6, atol=1e-6)
+    # bf16 at both boundaries, as the custom VJP keeps it
+    xb = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+    sb = torch.from_numpy(scale).to(torch.bfloat16).requires_grad_(True)
+    yb = tcommon.rms_norm(xb, sb)
+    dxb, dsb = torch.autograd.grad(yb, (xb, sb),
+                                   torch.from_numpy(g).to(torch.bfloat16))
+    assert yb.dtype == dxb.dtype == dsb.dtype == torch.bfloat16
+    jyb, jvjp = jax.vjp(lambda a, s: jcommon.rms_norm(a, s),
+                        jnp.asarray(x, jnp.bfloat16),
+                        jnp.asarray(scale, jnp.bfloat16))
+    assert np.array_equal(np.asarray(jyb).view(np.int16),
+                          yb.detach().view(torch.int16).numpy())
+
+
+def test_scheduler_order_matches_jax():
+    """One scripted sequence of submits and next_batch calls."""
+    rng = np.random.default_rng(3)
+    js, ts = JScheduler(3), Scheduler(3)
+    order_j, order_t, uid = [], [], 0
+    for rnd in range(8):
+        for _ in range(int(rng.integers(0, 5))):
+            p = np.ones(int(rng.integers(1, 60)), np.int32)
+            js.submit(JRequest(uid=uid, prompt=p))
+            ts.submit(Request(uid=uid, prompt=p))
+            uid += 1
+        order_j.append([r.uid for r in js.next_batch()])
+        order_t.append([r.uid for r in ts.next_batch()])
+    while js.pending or ts.pending:
+        order_j.append([r.uid for r in js.next_batch()])
+        order_t.append([r.uid for r in ts.next_batch()])
+    assert order_t == order_j and uid > 10
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_harness_shapes_match_jax(arch):
+    jh = JHarness(arch, cfg=jconfigs.get_arch(arch).REDUCED)
+    th = LMHarness(arch, cfg=tconfigs.get_arch(arch).REDUCED)
+    shape = SHAPES["decode_32k"]
+    jc = jh.cache_shapes(jconfigs.SHAPES["decode_32k"])
+    tc = th.cache_shapes(shape)
+    assert sorted(tc) == sorted(jc)
+    for k in jc:
+        assert tuple(tc[k].shape) == jc[k].shape and tc[k].device.type == (
+            "meta")
+    assert tuple(th.token_shapes(shape)["tokens"].shape) == (
+        jh.token_shapes(jconfigs.SHAPES["decode_32k"])["tokens"].shape)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_harness_steps_serve_greedy(arch):
+    """``make_prefill_step`` / ``make_decode_step`` (float32) against the
+    model's own forward: the greedy tokens of teacher forcing."""
+    cfg = dataclasses.replace(tconfigs.get_arch(arch).REDUCED,
+                              dtype=torch.float32)
+    h = LMHarness(arch, cfg=cfg)
+    params = h.model.init(prng.key(2), device="cpu")
+    shape = tconfigs.Shape("tiny", 10, 2, "decode")
+    toks = torch.from_numpy(_tokens(4, (2, 10), cfg.vocab_size))
+    logits, cache = h.make_prefill_step(shape, device="cpu")(
+        params, {"tokens": toks[:, :4]})
+    decode = h.make_decode_step(shape)
+    full, _ = h.model.forward(params, {"tokens": toks})
+    for pos in range(4, 10):
+        nxt, cache = decode(params, cache, {"tokens": toks[:, pos:pos + 1]},
+                            pos)
+        assert nxt.dtype == torch.int32 and nxt.shape == (2, 1)
+        assert torch.equal(nxt[:, 0], torch.argmax(full[:, pos], -1).to(
+            torch.int32))
+
+
+def test_serve_launcher_on_cpu():
+    out = tserve.main(["--device", "cpu", "--requests", "6",
+                       "--max-new", "4"])
+    assert out["total_tokens"] == 6 * 4
+    assert sum(len(b["uids"]) for b in out["batches"]) == 6
+    assert all(b["latency_s"] > 0 for b in out["batches"])
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "granite-20b", "--requests", "3", "--max-new", "2"],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1].startswith("[serve] 3 requests, 6 tokens in ")
+    assert all(line.startswith("[serve] batch ") for line in lines[:-1])

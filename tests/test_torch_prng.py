@@ -160,12 +160,35 @@ def test_fold_in_equals_jax(seed):
 def test_normal_is_allclose_to_jax(shape, seed):
     """``normal`` against ``jax.random.normal``: float32, the same shape,
     rtol 1e-6 and no atol (2.4e-7 measured). The uniforms under it are
-    JAX's bits; ``erf_inv`` is XLA's polynomial, but ``torch.log1p``
-    differs from XLA's in the last bit now and then, so most values, not
-    all, are bit-equal (at least 90 %, ~95 % measured)."""
+    JAX's bits; ``erf_inv`` is XLA's polynomial, but its ``log1p`` (the
+    float64 one, rounded) differs from XLA's float32 one in the last bit
+    now and then, so most values, not all, are bit-equal (at least 90 %,
+    ~95 % measured)."""
     want = np.asarray(jax.random.normal(jax.random.key(seed), shape))
     got = prng.normal(prng.key(seed), shape)
     assert got.dtype == torch.float32 and tuple(got.shape) == shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
     if want.size >= 1000:
         assert (got.numpy() == want).mean() >= 0.9
+
+
+def test_erfinv_takes_log1p_and_sqrt_in_float64():
+    """``_erfinv_f32`` rounds a float64 ``log1p`` and ``sqrt`` to float32,
+    so its bits do not depend on a device's float32 ones: equal to the
+    same polynomial in numpy float32 on numpy's float64 ``log1p`` and
+    IEEE float32 ``sqrt``, the tails (a third of the draws past the
+    branch at w = 5) included."""
+    f32 = np.float32
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.uniform(-1, 1, 100_000),
+                        rng.uniform(0.9966, 1.0, 50_000)]).astype(f32)
+    x[:4] = [np.nextafter(f32(-1), f32(0)), 0.0, 0.99663, -0.9999999]
+    w = (-np.log1p(-(x * x).astype(np.float64))).astype(f32)
+    lt = w < f32(5)
+    w = np.where(lt, w - f32(2.5), np.sqrt(w) - f32(3)).astype(f32)
+    p = None
+    for a, b in zip(prng._ERFINV_W_LT_5, prng._ERFINV_W_GE_5):
+        c = np.where(lt, f32(a), f32(b)).astype(f32)
+        p = c if p is None else (c + p * w).astype(f32)
+    got = prng._erfinv_f32(torch.from_numpy(x)).numpy()
+    assert np.array_equal(got, (p * x).astype(f32))
