@@ -132,7 +132,25 @@ in phases that each exit non-zero on failure:
    16, max-seq 96), printing tokens/s, per-batch latency, the memory peak
    and one decode step's device, busy and wall time; in float32 (IEEE
    products) prefill + decode against the teacher-forced logits (rtol /
-   atol 2e-3); and a two-layer cut of full width, card against host.
+   atol 2e-3); and a two-layer cut of full width, card against host;
+12. drives the attention-family LM blocks at full width (``--seed``
+   draws their inputs): gemma3-12b (48 layers, 5:1 local:global windows,
+   q/k norm, geglu, vocab 262144) and minicpm3-4b (62 layers, MLA) whole
+   through ``launch.serve --full`` in bf16 at the launcher's defaults;
+   mixtral-8x7b at full width cut to 8 of 32 layers (MoE top-2; the whole
+   does not fit one card) through ``BatchServer`` with the launcher's
+   request plan, with the share of prefill (token, expert) pairs that
+   capacity 1.25 drops; llama4-scout at full width cut to 2 layers (MoE
+   top-1 + shared expert), prefill and greedy decode; qwen2-vl-2b whole
+   through ``LMHarness``'s prefill and decode steps with embeddings
+   (4, 48, 1536) and M-RoPE ids (3, 4, 48). Each prints its param count
+   (the leaves == ``param_count()`` plus the norm scales it leaves out),
+   bytes, tokens/s, one decode step's device, busy and wall time at B 4
+   and the memory peak; every logit finite and every token in the
+   vocabulary. In float32 (IEEE products) each arch cut to 12 (gemma3:
+   two local:global groups), 2, or 1 (llama4-scout) layers: prefill +
+   decode against teacher forcing (MoE at capacity_factor E/k; rtol /
+   atol 2e-3) and the cut's logits card against host (1e-3).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -2832,7 +2850,465 @@ def phase_lm(np, torch, card) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 12: the attention-family LM blocks at full width
+# --------------------------------------------------------------------------
+ZOO_SERVED = ("gemma3-12b", "minicpm3-4b")  # whole, through launch.serve
+ZOO_MIXTRAL_LAYERS = 8      # of 32: the whole, 93.4 GB in bf16, exceeds a card
+ZOO_SCOUT_LAYERS = 2        # of 48: the whole is 215.5 GB in bf16
+ZOO_SCOUT = (4, 48, 16)     # llama4-scout: batch, prompt tokens, new tokens
+ZOO_VL = (4, 48, 16)        # qwen2-vl-2b: batch, prompt embeddings, new tokens
+# float32 depth cuts of full width for teacher forcing and card vs host:
+# gemma3 keeps two [local x 5, global] groups, so a global layer is in it;
+# llama4-scout one layer, or its host copy would exceed 25 GB
+ZOO_CUTS = {"gemma3-12b": 12, "minicpm3-4b": 2, "mixtral-8x7b": 2,
+            "llama4-scout-17b-a16e": 1, "qwen2-vl-2b": 2}
+
+
+def free_card(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def uncounted_norms(cfg) -> int:
+    """The norm scales the analytic ``param_count`` leaves out: q/k norm
+    and MLA's two latent norms, per layer."""
+    per = 2 * cfg.resolved_head_dim if cfg.qk_norm else 0
+    if cfg.mla is not None:
+        per += cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank
+    return cfg.n_layers * per
+
+
+def lm_size(arch, cfg) -> tuple[int, int]:
+    """(params, bytes) of ``cfg``'s leaves, drawn on ``meta``; the count
+    must be ``param_count()`` plus the norm scales it leaves out."""
+    from repro_torch.launch.steps import LMHarness
+    from repro_torch.tree import flatten_with_paths
+
+    leaves = [t for _, t in flatten_with_paths(
+        LMHarness(arch, cfg=cfg).param_shapes())]
+    n = sum(t.numel() for t in leaves)
+    check(n == cfg.param_count() + uncounted_norms(cfg),
+          f"{arch}: {n} leaves != param_count {cfg.param_count()} + "
+          f"{uncounted_norms(cfg)} norm scales")
+    return n, sum(t.numel() * t.element_size() for t in leaves)
+
+
+def check_served(res, vocab, n_tokens, what) -> None:
+    got = sum(len(t) for b in res["batches"] for t in b["tokens"])
+    check(got == res["total_tokens"] == n_tokens,
+          f"{what}: served {got} tokens, want {n_tokens}")
+    check(all(0 <= int(t.min()) and int(t.max()) < vocab
+              for b in res["batches"] for t in b["tokens"]),
+          f"{what}: a served token outside the vocabulary")
+
+
+def server_step_times(np, torch, server, vocab, seed) -> tuple:
+    """One bf16 decode step of ``server`` at B LM_STEP_BATCH, position
+    LM_STEP_SEQ of its cache: device and wall ms (medians of
+    LM_STEP_TIMES) and device-busy ms."""
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(
+        1, vocab, (LM_STEP_BATCH, LM_STEP_SEQ)).astype(np.int32)).cuda()
+    tok, cache = server._prefill(server.params, toks, batch=LM_STEP_BATCH,
+                                 seq=LM_STEP_SEQ)
+
+    def step():
+        server._decode_step(server.params, cache, tok, LM_STEP_SEQ)
+
+    dev_ms, wall_ms = median_times_ms(torch, step, LM_STEP_TIMES)
+    _, _, busy_us = device_and_wall_us(torch, step, 5)
+    return dev_ms, wall_ms, busy_us / 1e3
+
+
+def zoo_served_arch(np, torch, arch, seed) -> dict:
+    """``launch.serve --arch <arch> --full`` in bf16 at the launcher's
+    defaults (12 requests, max-batch 4, max-new 16, max-seq 96), whole."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    cfg = configs.get_arch(arch).CONFIG
+    n, nbytes = lm_size(arch, cfg)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.main(["--arch", arch, "--full", "--device", "cuda"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    server = res.pop("server")
+    check_served(res, cfg.vocab_size, 12 * 16, arch)
+    step = server_step_times(np, torch, server, cfg.vocab_size, seed)
+    del server
+    free_card(torch)
+    return {"arch": arch, "layers": cfg.n_layers, "params": n,
+            "param_bytes": nbytes, "init_s": res["init_s"],
+            "tokens": res["total_tokens"], "wall_s": res["wall_s"],
+            "tokens_per_s": res["tokens_per_s"],
+            "batch_latency_s": [b["latency_s"] for b in res["batches"]],
+            "peak_bytes": peak, "step": step}
+
+
+def prefill_drops(np, torch, server, reqs, batches) -> dict:
+    """Replays the served batches' prefills with ``moe.moe_forward``
+    wrapped to count the routed (token, expert) pairs and those capacity
+    drops, over all layers and batches: all pairs, and the pairs of
+    prompt tokens (not the left padding)."""
+    from repro_torch.models import moe
+
+    counts = []
+    plain = moe.moe_forward
+    prompt_rows = []   # the current batch's prompt-token mask, (B * S,)
+
+    def counted(p, x, cfg, *, dropless=False):
+        if not dropless:
+            xf = x.reshape(-1, x.shape[-1])
+            _, _, gate_idx = moe.route(p, xf, cfg.moe)
+            C = moe.capacity(xf.shape[0], cfg.moe, False)
+            _, _, st, keep, _ = moe.dispatch(gate_idx, cfg.moe.n_experts, C)
+            real = prompt_rows[-1][st]
+            counts.append(torch.stack([
+                (~keep).sum(), torch.full_like((~keep).sum(), keep.numel()),
+                (~keep & real).sum(), real.sum()]))
+        return plain(p, x, cfg, dropless=dropless)
+
+    moe.moe_forward = counted
+    try:
+        for b in batches:
+            prompts = [reqs[u].prompt for u in b["uids"]]
+            S = max(len(q) for q in prompts)
+            toks = np.zeros((len(prompts), S), np.int32)  # left-padded
+            real = np.zeros((len(prompts), S), bool)
+            for i, q in enumerate(prompts):
+                toks[i, S - len(q):] = q
+                real[i, S - len(q):] = True
+            prompt_rows.append(torch.from_numpy(real.reshape(-1)).cuda())
+            server._prefill(server.params, torch.from_numpy(toks).cuda(),
+                            batch=len(prompts), seq=S)
+    finally:
+        moe.moe_forward = plain
+    dropped, routed, dropped_real, routed_real = (
+        int(v) for v in torch.stack(counts).sum(0).cpu())
+    return {"dropped": dropped, "routed": routed,
+            "prompt_dropped": dropped_real, "prompt_routed": routed_real}
+
+
+def zoo_mixtral(np, torch, seed) -> dict:
+    """mixtral-8x7b at full width, its depth cut to ZOO_MIXTRAL_LAYERS,
+    through ``BatchServer`` with ``launch.serve``'s request plan (bf16);
+    the share of prefill (token, expert) pairs capacity 1.25 drops."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.launch import serve
+    from repro_torch.serving import BatchServer
+
+    arch = "mixtral-8x7b"
+    mod = configs.get_arch(arch)
+    cfg = dataclasses.replace(mod.CONFIG, n_layers=ZOO_MIXTRAL_LAYERS)
+    n, nbytes = lm_size(arch, cfg)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    model = mod.build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(prng.key(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    server = BatchServer(model, params, max_seq=96, device="cuda")
+    reqs = serve.request_plan(cfg.vocab_size, 12, 96, 16)
+    res = serve.run(server, reqs, 4)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check_served(res, cfg.vocab_size, 12 * 16, arch)
+    drops = prefill_drops(np, torch, server, reqs, res["batches"])
+    check(0 < drops["prompt_routed"] <= drops["routed"]
+          and drops["dropped"] < drops["routed"],
+          f"{arch}: prefill drops {drops}")
+    step = server_step_times(np, torch, server, cfg.vocab_size, seed)
+    del server, model, params
+    free_card(torch)
+    return {"arch": arch, "layers": cfg.n_layers, "params": n,
+            "param_bytes": nbytes, "init_s": init_s,
+            "tokens": res["total_tokens"], "wall_s": res["wall_s"],
+            "tokens_per_s": res["tokens_per_s"],
+            "batch_latency_s": [b["latency_s"] for b in res["batches"]],
+            "peak_bytes": peak, "step": step, "prefill_drops": drops}
+
+
+def greedy_run(np, torch, prefill, decode, first_in, new, vocab, what):
+    """Prefill, then ``new`` greedy decode steps; every logit finite and
+    every token in the vocabulary. Returns (tokens (B, new), wall s, one
+    decode step's device / wall / busy ms at the first position)."""
+    t0 = time.perf_counter()
+    logits, cache = prefill(first_in)
+    check(bool(torch.isfinite(logits).all()), f"{what}: prefill logits "
+          f"not finite")
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    first = (tok, cache)
+    out = [tok]
+    for s in range(new - 1):
+        logits, cache = decode(tok, cache, s)
+        check(bool(torch.isfinite(logits).all()),
+              f"{what}: decode logits not finite at step {s}")
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        out.append(tok)
+    toks = torch.cat(out, dim=1).cpu()
+    wall = time.perf_counter() - t0
+    check(0 <= int(toks.min()) and int(toks.max()) < vocab,
+          f"{what}: a token outside the vocabulary")
+
+    def step():
+        decode(first[0], first[1], 0)
+
+    dev_ms, wall_ms = median_times_ms(torch, step, LM_STEP_TIMES)
+    _, _, busy_us = device_and_wall_us(torch, step, 5)
+    return toks, wall, (dev_ms, wall_ms, busy_us / 1e3)
+
+
+def zoo_scout(np, torch, seed) -> dict:
+    """llama4-scout at full width, its depth cut to ZOO_SCOUT_LAYERS:
+    prefill and greedy decode in bf16."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import prng
+
+    arch = "llama4-scout-17b-a16e"
+    mod = configs.get_arch(arch)
+    cfg = dataclasses.replace(mod.CONFIG, n_layers=ZOO_SCOUT_LAYERS)
+    n, nbytes = lm_size(arch, cfg)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    model = mod.build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(prng.key(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S, new = ZOO_SCOUT
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+
+    @torch.inference_mode()
+    def prefill(batch):
+        return model.prefill(params, batch,
+                             model.init_cache(B, S + new, device="cuda"))
+
+    @torch.inference_mode()
+    def decode(tok, cache, s):
+        return model.decode_step(params, {"tokens": tok}, S + s, cache)
+
+    out, wall, step = greedy_run(np, torch, prefill, decode,
+                                 {"tokens": toks}, new, cfg.vocab_size, arch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del params, model
+    free_card(torch)
+    return {"arch": arch, "layers": cfg.n_layers, "params": n,
+            "param_bytes": nbytes, "init_s": init_s, "tokens": out.numel(),
+            "wall_s": wall, "tokens_per_s": out.numel() / wall,
+            "peak_bytes": peak, "step": step}
+
+
+def vl_inputs(np, torch, cfg, rng, B, S, dtype):
+    """Merged patch + text embeddings (B, S, d) and M-RoPE ids (3, B, S):
+    temporal ids run 0..S-1, height and width ids are patch coordinates."""
+    emb = torch.from_numpy(rng.normal(0, 0.02, (B, S, cfg.d_model)).astype(
+        np.float32)).to(dtype).cuda()
+    p3 = np.broadcast_to(np.arange(S, dtype=np.int32), (3, B, S)).copy()
+    p3[1:] = rng.integers(0, 16, (2, B, S))
+    return emb, torch.from_numpy(p3).cuda()
+
+
+def zoo_vl(np, torch, seed) -> dict:
+    """qwen2-vl-2b, whole, through ``LMHarness``'s prefill and decode steps
+    in bf16, with embeddings and M-RoPE ids drawn from ``seed``."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.core import prng
+    from repro_torch.launch.steps import LMHarness
+
+    arch = "qwen2-vl-2b"
+    cfg = configs.get_arch(arch).CONFIG
+    n, nbytes = lm_size(arch, cfg)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    h = LMHarness(arch, cfg=cfg)
+    t0 = time.perf_counter()
+    params = h.model.init(prng.key(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S, new = ZOO_VL
+    shape = Shape("vl", S + new, B, "prefill")
+    emb, p3 = vl_inputs(np, torch, cfg, np.random.default_rng(seed), B, S,
+                        cfg.dtype)
+    check(tuple(emb.shape) == (B, S, cfg.d_model)
+          and tuple(p3.shape) == (3, B, S), "qwen2-vl input shapes")
+    prefill_step = h.make_prefill_step(shape, device="cuda")
+    decode_step = h.make_decode_step(shape)
+
+    @torch.inference_mode()
+    def decode(tok, cache, s):
+        # the step's logits, with the harness's M-RoPE ids of the position
+        tin = {"tokens": tok,
+               "mrope_positions": torch.full((3, B, 1), S + s,
+                                             dtype=torch.int32,
+                                             device="cuda")}
+        return h.model.decode_step(params, tin, S + s, cache)
+
+    out, wall, step = greedy_run(
+        np, torch, lambda b: prefill_step(params, b), decode,
+        {"embeds": emb, "mrope_positions": p3}, new, cfg.vocab_size, arch)
+    # the harness's decode step gives the same greedy tokens
+    logits, cache = prefill_step(params, {"embeds": emb,
+                                          "mrope_positions": p3})
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    got = [tok]
+    for s in range(new - 1):
+        tok, cache = decode_step(params, cache, {"tokens": tok}, S + s)
+        got.append(tok)
+    check(torch.equal(torch.cat(got, dim=1).cpu(), out),
+          "qwen2-vl: the harness's decode step's tokens differ")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache, logits
+    free_card(torch)
+    return {"arch": arch, "layers": cfg.n_layers, "params": n,
+            "param_bytes": nbytes, "init_s": init_s, "tokens": out.numel(),
+            "wall_s": wall, "tokens_per_s": out.numel() / wall,
+            "peak_bytes": peak, "step": step}
+
+
+def zoo_f32(np, torch, arch, layers, seed) -> dict:
+    """Float32 (IEEE products) at full width, depth cut to ``layers``:
+    prefill + decode against teacher forcing (MoE at capacity_factor E/k),
+    then the same params' logits card against host."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.device import ieee_fp32_matmul
+    from repro_torch.tree import tree_map
+
+    mod = configs.get_arch(arch)
+    cfg = dataclasses.replace(mod.CONFIG, dtype=torch.float32,
+                              n_layers=layers)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    model = mod.build(cfg)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(prng.key(1), device="cuda")
+    rng = np.random.default_rng(seed)
+    B, S, k = LM_CHECK
+    if cfg.frontend == "embeddings":
+        emb, p3 = vl_inputs(np, torch, cfg, rng, B, S, torch.float32)
+
+        def inputs(a, b):
+            return {"embeds": emb[:, a:b], "mrope_positions": p3[:, :, a:b]}
+    else:
+        toks = torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+
+        def inputs(a, b):
+            return {"tokens": toks[:, a:b]}
+    with ieee_fp32_matmul(), torch.inference_mode():
+        full, _ = model.forward(params, inputs(0, S))
+        check(bool(torch.isfinite(full).all()),
+              f"{arch}: float32 logits not finite")
+        cache = model.init_cache(B, S, device="cuda")
+        logits, cache = model.prefill(params, inputs(0, k), cache)
+        worst = worst_ratio(logits[:, 0], full[:, k - 1], LM_DECODE_TOL)
+        for pos in range(k, S):
+            logits, cache = model.decode_step(params, inputs(pos, pos + 1),
+                                              pos, cache)
+            worst = max(worst, worst_ratio(logits[:, 0], full[:, pos],
+                                           LM_DECODE_TOL))
+    peak = torch.cuda.max_memory_allocated()
+    check(worst <= 1.0, f"{arch} float32 {layers}-layer cut: prefill / "
+          f"decode off teacher forcing by {worst:.3f} x the tolerance")
+    del cache, full, logits
+    free_card(torch)
+    # the same params on the host, a (2, 8) input
+    p_host = tree_map(lambda t: t.cpu(), params)
+    with ieee_fp32_matmul(), torch.inference_mode():
+        lc, _ = model.forward(params, inputs(0, 8))
+        lh, _ = model.forward(p_host, tree_map(lambda t: t.cpu(),
+                                               inputs(0, 8)))
+    cut_worst = worst_ratio(lc, lh, LM_CUT_TOL)
+    cut_abs = float((lc.cpu() - lh).abs().max())
+    check(cut_worst <= 1.0, f"{arch} {layers}-layer cut: card vs host "
+          f"{cut_worst:.3f} x the tolerance")
+    del params, p_host, lc, lh
+    free_card(torch)
+    return {"layers": layers, "decode_worst": worst, "cut_worst": cut_worst,
+            "cut_max_abs": cut_abs, "peak_bytes": peak}
+
+
+def log_zoo(r, how, f32, card) -> None:
+    dev_ms, wall_ms, busy_ms = r["step"]
+    line = (f"{r['arch']} ({how}, {r['layers']} layers): {r['params']} "
+            f"params, {r['param_bytes']} bytes in bf16, init "
+            f"{r['init_s']:.2f} s; {r['tokens']} tokens in "
+            f"{r['wall_s']:.3f} s, {r['tokens_per_s']:.1f} tokens/s")
+    if "batch_latency_s" in r:
+        line += "; per-batch latency " + ", ".join(
+            f"{t:.3f}" for t in r["batch_latency_s"]) + " s"
+    log(line + f"; memory peak {r['peak_bytes'] / 2**30:.2f} GiB ({card})")
+    log(f"{r['arch']} one decode step (B 4, bf16): device {dev_ms:.3f} ms "
+        f"between events, wall {wall_ms:.3f} ms, median of {LM_STEP_TIMES}; "
+        f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} % of "
+        f"wall) ({card})")
+    if "prefill_drops" in r:
+        d = r["prefill_drops"]
+        log(f"{r['arch']} prefill at capacity 1.25: {d['dropped']} of "
+            f"{d['routed']} (token, expert) pairs dropped "
+            f"({100 * d['dropped'] / d['routed']:.2f} %), of the prompt "
+            f"tokens' pairs (not the left padding) {d['prompt_dropped']} of "
+            f"{d['prompt_routed']} "
+            f"({100 * d['prompt_dropped'] / d['prompt_routed']:.2f} %), over "
+            f"{r['layers']} layers and the served batches ({card})")
+    log(f"{r['arch']} float32 {f32['layers']}-layer cut (IEEE products): "
+        f"prefill {LM_CHECK[2]} + decode to {LM_CHECK[1]} within "
+        f"{f32['decode_worst']:.4f} of rtol/atol {LM_DECODE_TOL} of teacher "
+        f"forcing; card vs host max |diff| {f32['cut_max_abs']:.3e}, "
+        f"{f32['cut_worst']:.4f} of rtol/atol {LM_CUT_TOL}; memory peak "
+        f"{f32['peak_bytes'] / 2**30:.2f} GiB ({card})")
+
+
+def phase_lm_zoo(np, torch, card, seed) -> dict:
+    """gemma3-12b and minicpm3-4b whole through ``launch.serve --full``;
+    mixtral-8x7b at full width and 8 layers through ``BatchServer``;
+    llama4-scout at full width and 2 layers, prefill and decode;
+    qwen2-vl-2b whole through the harness's steps with embeddings and
+    M-RoPE ids; each arch's float32 depth cut against teacher forcing and
+    card against host."""
+    out = {}
+    for arch in ZOO_SERVED:
+        out[arch] = zoo_served_arch(np, torch, arch, seed)
+    out["mixtral-8x7b"] = zoo_mixtral(np, torch, seed)
+    out["llama4-scout-17b-a16e"] = zoo_scout(np, torch, seed)
+    out["qwen2-vl-2b"] = zoo_vl(np, torch, seed)
+    for arch, layers in ZOO_CUTS.items():
+        out[arch]["f32"] = zoo_f32(np, torch, arch, layers, seed)
+    for arch, how in (("gemma3-12b", "launch.serve --full, whole"),
+                      ("minicpm3-4b", "launch.serve --full, whole"),
+                      ("mixtral-8x7b", "BatchServer, full width"),
+                      ("llama4-scout-17b-a16e", "prefill + decode, full "
+                       "width"),
+                      ("qwen2-vl-2b", "LMHarness steps, embeddings, whole")):
+        log_zoo(out[arch], how, out[arch]["f32"], card)
+    return out
+
+
+# --------------------------------------------------------------------------
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="chip smoke test of the port")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 12's tokens, embeddings and ids")
+    args = ap.parse_args()
     t_start = time.perf_counter()
     try:
         import torch
@@ -2931,6 +3407,10 @@ def main() -> None:
 
     log("phase 11: the dense LM serving path at full width on the card")
     phase_lm(np, torch, card)
+
+    log("phase 12: the attention-family LM blocks at full width on the "
+        "card")
+    phase_lm_zoo(np, torch, card, args.seed)
     check_no_jax()
 
     print(card, flush=True)  # name, power limit as nvidia-smi gives them

@@ -7,10 +7,17 @@ printing the twin's ``[serve]`` lines: tokens/s per batch and aggregate.
 Runs on ``--device`` (default ``cuda``; ``cpu`` for the host).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b --full
+
+Like the twin, it serves token-frontend archs only: qwen2-vl-2b (the
+embeddings frontend) exits with the twin's message, and is driven through
+``LMHarness``'s prefill and decode steps instead.
 
 ``main`` returns a summary (each batch's prompt lengths, tokens, tokens/s
 and latency; the totals; the server, for callers that time its steps).
+``request_plan`` and ``run`` are its traffic and its loop, for callers
+that build their own server (a depth-cut model, say).
 """
 
 from __future__ import annotations
@@ -43,20 +50,41 @@ def main(argv=None) -> dict:
 
     mod = configs.get_arch(args.arch)
     cfg = mod.CONFIG if args.full else mod.REDUCED
+    if cfg.frontend != "tokens" or args.arch == "whisper-large-v3":
+        raise SystemExit(f"{args.arch} needs a modality frontend; serve "
+                         f"demo supports token-frontend archs")
     h = LMHarness(args.arch, cfg=cfg)
     t0 = time.perf_counter()
     params = h.model.init(prng.key(0), device=dev)
     init_s = time.perf_counter() - t0
     server = BatchServer(h.model, params, max_seq=args.max_seq, device=dev)
-    sched = Scheduler(max_batch=args.max_batch)
+    out = run(server, request_plan(cfg.vocab_size, args.requests,
+                                   args.max_seq, args.max_new),
+              args.max_batch)
+    return dict(out, init_s=init_s, server=server)
 
+
+def request_plan(vocab_size: int, n: int, max_seq: int,
+                 max_new: int) -> list[Request]:
+    """The launcher's synthetic traffic: ``n`` requests, prompts of 4 ..
+    ``max_seq - max_new - 2`` random tokens from ``default_rng(0)``."""
     rng = np.random.default_rng(0)
-    for uid in range(args.requests):
-        plen = int(rng.integers(4, args.max_seq - args.max_new - 1))
-        prompt = rng.integers(1, cfg.vocab_size, plen).astype(np.int32)
-        sched.submit(Request(uid=uid, prompt=prompt,
-                             max_new_tokens=args.max_new))
+    reqs = []
+    for uid in range(n):
+        plen = int(rng.integers(4, max_seq - max_new - 1))
+        prompt = rng.integers(1, vocab_size, plen).astype(np.int32)
+        reqs.append(Request(uid=uid, prompt=prompt, max_new_tokens=max_new))
+    return reqs
 
+
+def run(server: BatchServer, requests: list[Request],
+        max_batch: int) -> dict:
+    """Serve ``requests`` through a ``Scheduler`` of ``max_batch``,
+    printing the twin's ``[serve]`` lines; returns each batch's prompt
+    lengths, tokens, latency and tokens/s, and the totals."""
+    sched = Scheduler(max_batch=max_batch)
+    for r in requests:
+        sched.submit(r)
     total_tokens, batches, summary = 0, 0, []
     t0 = time.perf_counter()
     while True:
@@ -77,12 +105,10 @@ def main(argv=None) -> dict:
               f"-> {stats['generated_tokens']} toks "
               f"@ {stats['tokens_per_s']:.1f} tok/s")
     dt = time.perf_counter() - t0
-    print(f"[serve] {args.requests} requests, {total_tokens} tokens in "
+    print(f"[serve] {len(requests)} requests, {total_tokens} tokens in "
           f"{dt:.1f}s ({total_tokens / dt:.1f} tok/s aggregate)")
     return {"batches": summary, "total_tokens": total_tokens, "wall_s": dt,
-            "tokens_per_s": total_tokens / dt, "init_s": init_s,
-            "server": server}
-
+            "tokens_per_s": total_tokens / dt}
 
 if __name__ == "__main__":
     main()

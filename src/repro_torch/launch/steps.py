@@ -5,10 +5,14 @@ Twin of the serving half of :mod:`repro.launch.steps`:
   * ``param_shapes()``       — the params on the ``meta`` device (shapes
     and dtypes, nothing drawn or allocated), where the twin uses
     ``eval_shape``;
-  * ``token_shapes`` / ``cache_shapes`` — ``meta`` tensors standing in
-    for the decode inputs, as the twin's ``ShapeDtypeStruct``s do;
+  * ``batch_shapes`` / ``token_shapes`` / ``cache_shapes`` — ``meta``
+    tensors standing in for the step inputs (tokens, or ``embeds`` and
+    ``mrope_positions`` for the embeddings frontend) and the caches (GQA
+    rings, MLA latents, the split layout), as the twin's
+    ``ShapeDtypeStruct``s do;
   * ``make_prefill_step`` — build + fill KV caches;
-  * ``make_decode_step``  — one greedy token against the cache.
+  * ``make_decode_step``  — one greedy token against the cache (with
+    M-RoPE ids of the position, as the twin gives them).
 
 The train step (microbatched accumulation + AdamW, with the harness's
 optimizer and microbatch fields) waits for ROADMAP Queue 1 item 12b and
@@ -44,6 +48,7 @@ class LMHarness:
         mod = configs.get_arch(self.arch_id)
         self.cfg = self.cfg or mod.CONFIG
         self.model = mod.build(self.cfg)
+        self.is_whisper = self.arch_id == "whisper-large-v3"
 
     # ------------------------------------------------------------------
     # shapes (no allocation anywhere)
@@ -56,6 +61,28 @@ class LMHarness:
             raise SkipCell(
                 f"{self.arch_id} is pure full-attention; long_500k needs a "
                 f"sub-quadratic arch")
+
+    def batch_shapes(self, shape: Shape) -> dict:
+        """Inputs for train / prefill kinds (decode uses token_shapes)."""
+        self.check_cell(shape)
+        if self.is_whisper:
+            raise NotImplementedError(
+                "whisper's batch shapes are not ported yet: ROADMAP Queue 1 "
+                "item 12a-ii (the non-attention families and whisper)")
+        B, S = shape.global_batch, shape.seq_len
+        cfg = self.cfg
+
+        def i32(*dims):
+            return torch.empty(dims, dtype=torch.int32, device=_META)
+
+        if cfg.frontend == "embeddings":
+            out = {"embeds": torch.empty((B, S, cfg.d_model),
+                                         dtype=cfg.dtype, device=_META),
+                   "targets": i32(B, S)}
+            if cfg.mrope:
+                out["mrope_positions"] = i32(3, B, S)
+            return out
+        return {"tokens": i32(B, S), "targets": i32(B, S)}
 
     def cache_shapes(self, shape: Shape) -> dict:
         self.check_cell(shape)
@@ -93,11 +120,17 @@ class LMHarness:
         """``decode(params, cache, token_in, pos) -> (next token (B, 1)
         int32, cache)``: one greedy token."""
         model = self.model
+        cfg = self.cfg
 
         @torch.inference_mode()
         def decode(params, cache, token_in, pos):
-            logits, cache = model.decode_step(params, dict(token_in), pos,
-                                              cache)
+            tin = dict(token_in)
+            if cfg.mrope:
+                tok = torch.as_tensor(token_in["tokens"])
+                tin["mrope_positions"] = torch.full(
+                    (3, tok.shape[0], 1), int(pos), dtype=torch.int32,
+                    device=tok.device)
+            logits, cache = model.decode_step(params, tin, pos, cache)
             next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             return next_tok[:, None], cache
 

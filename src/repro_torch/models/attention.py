@@ -1,9 +1,10 @@
-"""Attention blocks: GQA / MQA self-attention with a ring KV cache.
+"""Attention blocks: GQA / MQA (+ SWA, local:global, M-RoPE) and MLA.
 
-Twin of the GQA half of :mod:`repro.models.attention`, in plain torch with
-the twin's arithmetic: float32 scores and softmax, the weights cast to the
-query dtype, float32 accumulation of the weighted values. One code path
-serves train, prefill and decode:
+Twin of :mod:`repro.models.attention`, in plain torch with the twin's
+arithmetic: float32 scores and softmax (or, with ``attn_scores_bf16``,
+bf16 scores and a float32 softmax), the weights cast to the query dtype,
+float32 accumulation of the weighted values. One code path serves train,
+prefill and decode:
 
   * train / prefill: the full (B, S) sequence under a causal (+ window)
     mask; with a cache, the last ``cache_len`` K/V are written into the
@@ -12,11 +13,13 @@ serves train, prefill and decode:
     ``pos % cache_len``) and attention runs over the cache with validity
     masks from the per-slot position ids.
 
+MLA (minicpm3) caches only the latent ``ckv`` and the shared rope key
+``k_rope`` and expands them per head at every call.
+
 Caches are dicts of tensors; an update returns new tensors and leaves the
-caller's cache as it was, as the twin's functional updates do. MLA,
-cross-attention, M-RoPE, bf16 scores and the context-parallel path are
-not ported yet (ROADMAP Queue 1 items 12a, 12c): ``DecoderLM`` refuses
-their configs, and cross-attention inputs raise here.
+caller's cache as it was, as the twin's functional updates do.
+Cross-attention (whisper) waits for ROADMAP Queue 1 item 12a-ii and the
+context-parallel path for item 12c: both raise.
 """
 
 from __future__ import annotations
@@ -25,15 +28,18 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.device import ieee_fp32_matmul
 from repro_torch.models.common import (
     TransformerConfig,
+    apply_mrope,
     apply_rope,
     dense_init,
     make_rope,
     rms_norm,
 )
 
-__all__ = ["init_gqa", "gqa_forward", "init_gqa_cache", "sdpa"]
+__all__ = ["init_gqa", "gqa_forward", "init_gqa_cache", "sdpa",
+           "init_mla", "mla_forward", "init_mla_cache"]
 
 _NEG_INF = -2.0 ** 30
 
@@ -91,38 +97,46 @@ def _split_heads(x, n_heads, hd):
     return x.reshape(B, S, n_heads, hd)
 
 
-def _sdpa_block(q, k, v, mask, q_group: int):
+def _scalar(value, dtype, device) -> torch.Tensor:
+    """A 0-d device tensor (filled there, no host copy), not a Python
+    scalar: CUDA torch divides by a host scalar as a product with its
+    reciprocal, off by a bit from the twin."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+def _sdpa_block(q, k, v, mask, q_group: int, scores_bf16: bool = False):
     """q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd); mask: (B,1,S,T)."""
     B, S, Hq, hd = q.shape
     g = q_group
     Hkv = k.shape[2]
     qg = q.reshape(B, S, Hkv, g, hd)
     f32 = torch.float32
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(f32), k.to(f32))
-    # a 0-d device tensor (filled there, no host copy), not a Python
-    # scalar: CUDA torch divides by a host scalar as a product with its
-    # reciprocal, off by a bit from the twin
-    scores = scores / torch.full((), np.sqrt(hd), dtype=f32,
-                                 device=q.device)
-    scores = scores + mask[:, :, None].to(f32)  # (B,1,1,S,T)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", w.to(f32), v.to(f32))
+    score_t = torch.bfloat16 if scores_bf16 else f32
+    with ieee_fp32_matmul():
+        scores = torch.einsum("bskgd,btkd->bkgst", qg.to(f32),
+                              k.to(f32)).to(score_t)
+    # the twin's divisor is sqrt(hd) rounded to the score dtype
+    scores = scores / _scalar(float(np.sqrt(hd)), score_t, q.device)
+    scores = scores + mask[:, :, None].to(score_t)  # (B,1,1,S,T)
+    w = torch.softmax(scores.to(f32), dim=-1).to(q.dtype)
+    with ieee_fp32_matmul():
+        out = torch.einsum("bkgst,btkd->bskgd", w.to(f32), v.to(f32))
     return out.reshape(B, S, Hq, hd).to(q.dtype)
 
 
 def sdpa(q, k, v, pos_q, pos_k, *, causal, window, q_group,
-         chunk: int = SDPA_CHUNK):
+         chunk: int = SDPA_CHUNK, scores_bf16: bool = False):
     """Chunked SDPA: masks are built per query chunk, and the score buffer
     is bounded by the chunk size."""
     B, S, Hq, hd = q.shape
     if S <= chunk or S % chunk != 0:
         mask = _full_mask(pos_q, pos_k, causal=causal, window=window)
-        return _sdpa_block(q, k, v, mask, q_group)
+        return _sdpa_block(q, k, v, mask, q_group, scores_bf16)
     outs = []
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
         mask = _full_mask(pos_q[:, sl], pos_k, causal=causal, window=window)
-        outs.append(_sdpa_block(q[:, sl], k, v, mask, q_group))
+        outs.append(_sdpa_block(q[:, sl], k, v, mask, q_group, scores_bf16))
     return torch.cat(outs, dim=1)
 
 
@@ -164,7 +178,8 @@ def gqa_forward(
 ):
     """Returns (out (B,S,d), new_cache)."""
     if kv_x is not None or kv_positions is not None:
-        _not_ported("cross-attention (whisper)", "12a (other block families)")
+        _not_ported("cross-attention (whisper)",
+                    "12a-ii (the non-attention families and whisper)")
     hd = cfg.resolved_head_dim
     B, S = x.shape[0], x.shape[1]
     q = x @ p["wq"]
@@ -181,7 +196,12 @@ def gqa_forward(
         q = rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
 
-    if not cfg.attn_bias:  # whisper uses learned abs pos, no rope
+    # M-RoPE only where its position ids are given (prefill of the
+    # embeddings frontend); 1-D rope otherwise, as at decode
+    if cfg.mrope and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, hd, cfg.rope_theta)
+        k = apply_mrope(k, mrope_positions, hd, cfg.rope_theta)
+    elif not cfg.attn_bias:  # whisper uses learned abs pos, no rope
         cos, sin = make_rope(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -225,9 +245,136 @@ def gqa_forward(
         pos_k = positions
 
     out = sdpa(q, k_att.to(q.dtype), v_att.to(q.dtype), positions, pos_k,
-               causal=causal, window=window, q_group=cfg.q_group)
+               causal=causal, window=window, q_group=cfg.q_group,
+               scores_bf16=cfg.attn_scores_bf16)
     out = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
     if "bo" in p:
         out = out + p["bo"]
     return out.to(x.dtype), new_cache
 
+
+# --------------------------------------------------------------------------
+# MLA (Multi-head Latent Attention) — minicpm3 family
+# --------------------------------------------------------------------------
+
+def init_mla(key, cfg: TransformerConfig, *, device) -> dict:
+    m = cfg.mla
+    d = cfg.d_model
+    H = cfg.n_heads
+    k1, k2, k3, k4, k5 = prng.split(key, 5)
+    qd = m.nope_head_dim + m.rope_head_dim
+    z = lambda n: torch.zeros((n,), device=device)  # noqa: E731
+    return {
+        "wq_a": dense_init(k1, (d, m.q_lora_rank), device=device),
+        "q_a_norm": {"scale": z(m.q_lora_rank)},
+        "wq_b": dense_init(k2, (m.q_lora_rank, H * qd), device=device),
+        # joint latent: compressed kv + decoupled rope key
+        "wkv_a": dense_init(k3, (d, m.kv_lora_rank + m.rope_head_dim),
+                            device=device),
+        "kv_a_norm": {"scale": z(m.kv_lora_rank)},
+        "wkv_b": dense_init(
+            k4, (m.kv_lora_rank, H * (m.nope_head_dim + m.v_head_dim)),
+            device=device),
+        "wo": dense_init(k5, (H * m.v_head_dim, d), device=device),
+    }
+
+
+def init_mla_cache(cfg: TransformerConfig, batch: int, cache_len: int,
+                   dtype=None, *, device) -> dict:
+    m = cfg.mla
+    dtype = dtype or cfg.dtype
+    return {
+        "ckv": torch.zeros((batch, cache_len, m.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "k_rope": torch.zeros((batch, cache_len, m.rope_head_dim),
+                              dtype=dtype, device=device),
+        "slot_pos": torch.full((cache_len,), -1, dtype=torch.int32,
+                               device=device),
+    }
+
+
+def mla_forward(
+    p: dict,
+    x,
+    *,
+    cfg: TransformerConfig,
+    positions,
+    cache: dict | None = None,
+    write_pos: int | None = None,
+    window: int | None = None,
+):
+    """MLA with a latent cache: only (ckv, k_rope) are cached, and every
+    call writes its S tokens at ring slots ``(write_pos + s) % cache_len``
+    and attends over the cache. Returns (out (B,S,d), new_cache)."""
+    m = cfg.mla
+    H = cfg.n_heads
+    B, S = x.shape[0], x.shape[1]
+    nope = m.nope_head_dim
+
+    q = x @ p["wq_a"]
+    q = rms_norm(q, p["q_a_norm"]["scale"], cfg.norm_eps)
+    q = (q @ p["wq_b"]).reshape(B, S, H, nope + m.rope_head_dim)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    kv = x @ p["wkv_a"]  # (B, S, kv_lora + rope)
+    ckv = rms_norm(kv[..., :m.kv_lora_rank], p["kv_a_norm"]["scale"],
+                   cfg.norm_eps)
+    k_rope_in = kv[..., m.kv_lora_rank:]  # (B, S, rope) one shared head
+
+    cos, sin = make_rope(positions, m.rope_head_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope_in[:, :, None, :], cos, sin)[:, :, 0]
+
+    new_cache = cache
+    if cache is not None:
+        if write_pos is None:
+            raise ValueError("cache updates require write_pos")
+        cache_len = cache["ckv"].shape[1]
+        pos = int(write_pos) + torch.arange(S, dtype=torch.int64,
+                                            device=x.device)
+        slots = pos % cache_len
+        new_cache = {
+            "ckv": _write(cache["ckv"], slots, ckv),
+            "k_rope": _write(cache["k_rope"], slots, k_rope),
+            "slot_pos": cache["slot_pos"].index_copy(
+                0, slots, pos.to(torch.int32)),
+        }
+        ckv_att = new_cache["ckv"].to(x.dtype)
+        kr_att = new_cache["k_rope"].to(x.dtype)
+        pos_k = new_cache["slot_pos"][None].expand(B, cache_len)
+    else:
+        ckv_att, kr_att = ckv, k_rope
+        pos_k = positions
+
+    # expand the latent -> per-head K_nope and V
+    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, H, nope + m.v_head_dim)
+    k_nope = torch.einsum("btc,chd->bthd", ckv_att, wkv_b[..., :nope])
+    v = torch.einsum("btc,chd->bthd", ckv_att, wkv_b[..., nope:])
+
+    f32 = torch.float32
+    scale = _scalar(float(np.float32(1.0 / np.sqrt(nope + m.rope_head_dim))),
+                    f32, x.device)
+
+    def block(qn_c, qr_c, pos_c):
+        with ieee_fp32_matmul():
+            scores = (torch.einsum("bshd,bthd->bhst", qn_c.to(f32),
+                                   k_nope.to(f32))
+                      + torch.einsum("bshd,btd->bhst", qr_c.to(f32),
+                                     kr_att.to(f32))) * scale
+        scores = scores + _full_mask(pos_c, pos_k, causal=True, window=window)
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        with ieee_fp32_matmul():
+            out = torch.einsum("bhst,bthd->bshd", w.to(f32), v.to(f32))
+        return out.to(x.dtype)
+
+    chunk = SDPA_CHUNK
+    if S <= chunk or S % chunk != 0:
+        out = block(q_nope, q_rope, positions)
+    else:
+        out = torch.cat([
+            block(q_nope[:, c * chunk:(c + 1) * chunk],
+                  q_rope[:, c * chunk:(c + 1) * chunk],
+                  positions[:, c * chunk:(c + 1) * chunk])
+            for c in range(S // chunk)], dim=1)
+    out = out.reshape(B, S, H * m.v_head_dim) @ p["wo"]
+    return out.to(x.dtype), new_cache

@@ -8,8 +8,7 @@ the port's copy of JAX's threefry, so a key gives the twin's params (the
 normals to rtol 1e-6; see :func:`repro_torch.core.prng.normal`).
 
 The twin's logical-axis registry (``AXES``, ``axes_of``) feeds its LM
-partitioner and waits with it (ROADMAP Queue 1 item 12c), as does
-``apply_mrope`` with the M-RoPE archs (item 12a).
+partitioner and waits with it (ROADMAP Queue 1 item 12c).
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ from repro_torch.core import prng
 __all__ = [
     "MoEConfig", "MLAConfig", "SSMConfig", "RWKVConfig", "TransformerConfig",
     "rms_norm", "layer_norm", "make_rope", "apply_rope", "apply_mrope",
-    "cross_entropy_loss", "dense_init",
+    "cross_entropy_loss", "dense_init", "silu", "gelu",
 ]
 
 # --------------------------------------------------------------------------
@@ -100,9 +99,11 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16
     # long-context capability flag (set for SWA/SSM/hybrid archs)
     subquadratic: bool = False
-    # the twin's sharding and memory levers, kept as data so a config
-    # compares field for field; the port's dense path reads none of them
-    # but vocab_pad_to
+    # the twin's sharding levers (item 12c; DecoderLM refuses them) and
+    # its memory levers: split_cache gives windowed layers ring caches of
+    # sliding_window slots and only the global layers full ones (needs
+    # L % global_every == 0, globals at k*global_every-1); attn_scores_bf16
+    # keeps the attention scores in bf16, the softmax in float32
     seq_parallel_attn: bool = False
     moe_ep: bool = False
     split_cache: bool = False
@@ -258,10 +259,49 @@ def apply_rope(x, cos, sin):
 
 def apply_mrope(x, positions3, head_dim: int, theta: float,
                 sections=(1, 1, 2)):
-    """Qwen2-VL multimodal RoPE: not ported yet."""
-    raise NotImplementedError(
-        "apply_mrope (qwen2-vl's M-RoPE) is not ported yet: ROADMAP Queue 1 "
-        "item 12a (other block families)")
+    """Qwen2-VL multimodal RoPE: positions3 (3, B, S) = (t, h, w) ids.
+
+    head_dim//2 rotary freqs are split across the three position streams in
+    ratio ``sections`` (temporal gets the low-frequency end); each stream's
+    freqs are :func:`make_rope`'s over its own range.
+    """
+    half = head_dim // 2
+    total = sum(sections)
+    bounds = np.cumsum([0] + [half * s // total for s in sections])
+    bounds[-1] = half
+    positions3 = torch.as_tensor(positions3, device=x.device)
+    cos_parts, sin_parts = [], []
+    for i in range(3):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        ar = torch.arange(lo, hi, dtype=torch.float32, device=x.device)
+        freqs = 1.0 / (theta ** (ar / half))
+        ang = positions3[i].to(torch.float32)[..., None] * freqs
+        cos_parts.append(torch.cos(ang))
+        sin_parts.append(torch.sin(ang))
+    cos = torch.cat(cos_parts, dim=-1)  # (B, S, half)
+    sin = torch.cat(sin_parts, dim=-1)
+    return apply_rope(x, cos, sin)
+
+
+# The twin's activations as XLA lowers them, op for op in the input dtype
+# (each op rounded to it, the constants too): in bfloat16 this gives the
+# twin's bytes where F.silu / F.gelu, which round once, differ in ~40 %.
+
+def _const(x, value: float) -> torch.Tensor:
+    return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
+def silu(x):
+    """``jax.nn.silu``: ``x * (1 / (1 + exp(-x)))``."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x):
+    """``jax.nn.gelu`` (its default tanh approximation): ``x * (0.5 * (1 +
+    tanh(sqrt(2 / pi) * (x + 0.044715 * x^3))))``."""
+    inner = _const(x, np.sqrt(2 / np.pi)) * (
+        x + _const(x, 0.044715) * (x * x * x))
+    return x * (0.5 * (1 + torch.tanh(inner)))
 
 
 def cross_entropy_loss(logits, targets, z_weight: float = 1e-4):

@@ -1,18 +1,22 @@
-"""Decoder-only LM stack: the dense attention family.
+"""Decoder-only LM stack: the attention family.
 
-Twin of :mod:`repro.models.transformer` for ``block_kind="attn"`` with a
-dense MLP (granite-3 GQA, granite-20b MQA). The twin scans one layer body
-over stacked params (leading L axis, as ``vmap`` stacks them); here the
-same stacked params are walked by a Python loop over L. Three entry
-points share the layer body:
+Twin of :mod:`repro.models.transformer` for ``block_kind="attn"``: GQA /
+MQA (granite-3, granite-20b), MoE with sliding-window rings (mixtral) or
+a shared expert (llama4-scout), 5:1 local:global windows with q/k norm,
+geglu, scaled tied embeddings and split caches (gemma3), MLA (minicpm3),
+M-RoPE with the embeddings frontend (qwen2-vl). The twin scans one layer
+body over stacked params (leading L axis, as ``vmap`` stacks them); here
+the same stacked params are walked by a Python loop over L (and over the
+[local x (g-1), global] groups of the split cache). Three entry points
+share the layer body:
 
   * ``forward``      — teacher-forced logits (train / eval)
   * ``prefill``      — forward + populate the KV caches, last-token logits
   * ``decode_step``  — one token against the stacked caches
 
-MoE, MLA, mamba2, rwkv6, the split cache, the embeddings frontend and
-rematerialisation are not ported yet: ``DecoderLM`` raises for them and
-names the ROADMAP item that ports them.
+Mamba2 and RWKV6 blocks wait for ROADMAP Queue 1 item 12a-ii,
+rematerialisation for item 12b, ``seq_parallel_attn`` and ``moe_ep`` for
+item 12c: ``DecoderLM`` raises for them and names the item.
 """
 
 from __future__ import annotations
@@ -25,17 +29,20 @@ import torch
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (
     TransformerConfig,
     cross_entropy_loss,
     dense_init,
+    gelu,
     rms_norm,
+    silu,
 )
 from repro_torch.tree import tree_map
 
 __all__ = ["DecoderLM", "init_mlp", "mlp_forward"]
 
-_BLOCKS = "12a (other block families)"
+_BLOCKS = "12a-ii (the non-attention families and whisper)"
 
 
 def _not_ported(what: str, item: str = _BLOCKS):
@@ -68,27 +75,6 @@ def init_mlp(key, cfg: TransformerConfig, *, bias: bool = False,
     return p
 
 
-# The twin's activations as XLA lowers them, op for op in the input dtype
-# (each op rounded to it, the constants too): in bfloat16 this gives the
-# twin's bytes where F.silu / F.gelu, which round once, differ in ~40 %.
-
-def _const(x, value: float) -> torch.Tensor:
-    return torch.full((), value, dtype=x.dtype, device=x.device)
-
-
-def silu(x):
-    """``jax.nn.silu``: ``x * (1 / (1 + exp(-x)))``."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
-def gelu(x):
-    """``jax.nn.gelu`` (its default tanh approximation): ``x * (0.5 * (1 +
-    tanh(sqrt(2 / pi) * (x + 0.044715 * x^3))))``."""
-    inner = _const(x, np.sqrt(2 / np.pi)) * (
-        x + _const(x, 0.044715) * (x * x * x))
-    return x * (0.5 * (1 + torch.tanh(inner)))
-
-
 def mlp_forward(p: dict, x, cfg: TransformerConfig):
     if cfg.mlp_kind in ("swiglu", "geglu"):
         act = silu if cfg.mlp_kind == "swiglu" else gelu
@@ -103,6 +89,16 @@ def mlp_forward(p: dict, x, cfg: TransformerConfig):
     return h
 
 
+
+
+def _stacked(caches: list, like: dict) -> dict:
+    """Per-layer caches stacked on a new leading axis, keyed as ``like``
+    (``like`` itself when there are none)."""
+    if not caches:
+        return like
+    return {k: torch.stack([c[k] for c in caches]) for k in like}
+
+
 # --------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class DecoderLM:
@@ -110,20 +106,13 @@ class DecoderLM:
 
     def __post_init__(self):
         cfg = self.cfg
-        if cfg.block_kind != "attn":
+        if cfg.block_kind in ("mamba2", "rwkv6"):
             _not_ported(f"block_kind={cfg.block_kind!r}")
-        for field, what in (("moe", "MoE blocks"), ("mla", "MLA attention"),
-                            ("mrope", "M-RoPE")):
+        if cfg.block_kind != "attn":
+            raise ValueError(cfg.block_kind)
+        for field in ("seq_parallel_attn", "moe_ep"):
             if getattr(cfg, field):
-                _not_ported(what)
-        if cfg.frontend != "tokens":
-            _not_ported("the embeddings frontend")
-        if cfg.split_cache:
-            _not_ported("split_cache")
-        if cfg.attn_scores_bf16:
-            _not_ported("attn_scores_bf16")
-        if cfg.seq_parallel_attn:
-            _not_ported("seq_parallel_attn", "12c (the LM partitioner)")
+                _not_ported(field, "12c (the LM partitioner)")
 
     # ---------------- parameters ----------------
     def init(self, key, *, device="cuda") -> dict:
@@ -149,6 +138,7 @@ class DecoderLM:
                 stacked = tree_map(lambda t: t.new_empty(
                     (cfg.n_layers,) + tuple(t.shape)), layer)
             tree_map(lambda s, t: s[i].copy_(t), stacked, layer)
+            del layer
         params["layers"] = stacked
         if not cfg.tie_embeddings:
             params["unembed"] = {"table": cast(dense_init(
@@ -159,11 +149,18 @@ class DecoderLM:
         cfg = self.cfg
         k_attn, k_mlp = prng.split(key)
         zeros = lambda: torch.zeros((cfg.d_model,), device=device)  # noqa
-        return {"pre_norm": {"scale": zeros()},
-                "pre_mlp_norm": {"scale": zeros()},
-                "attn": attn.init_gqa(k_attn, cfg, bias=cfg.attn_bias,
-                                      device=device),
-                "mlp": init_mlp(k_mlp, cfg, device=device)}
+        layer: dict = {"pre_norm": {"scale": zeros()},
+                       "pre_mlp_norm": {"scale": zeros()}}
+        if cfg.mla is not None:
+            layer["attn"] = attn.init_mla(k_attn, cfg, device=device)
+        else:
+            layer["attn"] = attn.init_gqa(k_attn, cfg, bias=cfg.attn_bias,
+                                          device=device)
+        if cfg.moe:
+            layer["moe"] = moe_mod.init_moe(k_mlp, cfg, device=device)
+        else:
+            layer["mlp"] = init_mlp(k_mlp, cfg, device=device)
+        return layer
 
     # ---------------- layer schedule ----------------
     def layer_windows(self) -> np.ndarray:
@@ -186,56 +183,142 @@ class DecoderLM:
         return seq_len
 
     # ---------------- caches ----------------
+    def _split_geometry(self) -> tuple[int, int]:
+        """(n_groups, locals_per_group) for the split-cache layout."""
+        cfg = self.cfg
+        g = cfg.global_every
+        if not (cfg.split_cache and cfg.sliding_window and g):
+            raise ValueError("split_cache needs sliding_window and "
+                             "global_every")
+        if cfg.n_layers % g != 0:
+            raise ValueError("split_cache needs a regular pattern")
+        per = self.layer_windows().reshape(-1, g)
+        if not ((per[:, :-1] > 0).all() and (per[:, -1] == 0).all()):
+            raise ValueError(
+                "split_cache expects [local x (g-1), global] groups")
+        return cfg.n_layers // g, g - 1
+
     def init_cache(self, batch: int, seq_len: int, *, device="cuda") -> dict:
-        """Stacked per-layer ring caches: ``k``, ``v`` (L, B, T, Hkv, hd)
-        and ``slot_pos`` (L, T), on ``device`` (``"meta"`` for shapes)."""
+        """Stacked per-layer caches on ``device`` (``"meta"`` for shapes):
+        GQA rings ``k``, ``v`` (L, B, T, Hkv, hd) or MLA latents ``ckv``
+        (L, B, T, kv_lora), ``k_rope`` (L, B, T, rope), with ``slot_pos``
+        (L, T). With ``split_cache``: ``{"local": (G, g-1, ...) rings of
+        the window, "global": (G, ...) full caches}``."""
+        cfg = self.cfg
         dev = _device(device)
-        one = attn.init_gqa_cache(self.cfg, batch, self.cache_len(seq_len),
-                                  device=dev)
-        L = self.cfg.n_layers
-        return {k: v[None].expand((L,) + tuple(v.shape)).clone()
-                for k, v in one.items()}
+
+        def one(clen: int, lead: tuple) -> dict:
+            if cfg.mla is not None:
+                c = attn.init_mla_cache(cfg, batch, clen, device=dev)
+            else:
+                c = attn.init_gqa_cache(cfg, batch, clen, device=dev)
+            return {k: v.expand(lead + tuple(v.shape)).clone()
+                    for k, v in c.items()}
+
+        if cfg.split_cache and cfg.sliding_window and cfg.global_every:
+            G, nloc = self._split_geometry()
+            w = int(cfg.sliding_window)
+            return {"local": one(min(seq_len, w), (G, nloc)),
+                    "global": one(seq_len, (G,))}
+        return one(self.cache_len(seq_len), (cfg.n_layers,))
 
     # ---------------- core ----------------
     def _embed(self, params, batch_in):
         cfg = self.cfg
         table = params["embed"]["table"]
-        tokens = torch.as_tensor(batch_in["tokens"], device=table.device)
-        x = table[tokens.to(torch.int64)]
+        if cfg.frontend == "embeddings" and "embeds" in batch_in:
+            # the stub modality frontend supplies merged patch / frame
+            # embeddings at prefill; decode falls through to the table
+            x = torch.as_tensor(batch_in["embeds"],
+                                device=table.device).to(cfg.dtype)
+        else:
+            tokens = torch.as_tensor(batch_in["tokens"], device=table.device)
+            x = table[tokens.to(torch.int64)]
         if cfg.embed_scale:
             x = x * torch.full((), np.sqrt(cfg.d_model), dtype=cfg.dtype,
                                device=x.device)
         return x
 
-    def _layer_body(self, x, layer_p, window, cache, write_pos, positions):
-        """One block; cache may be None. Returns (x, new_cache)."""
+    def _layer_body(self, x, layer_p, window, cache, write_pos, positions,
+                    mrope_positions=None):
+        """One block; cache may be None. Returns (x, new_cache, aux)."""
         cfg = self.cfg
         h = rms_norm(x, layer_p["pre_norm"]["scale"], cfg.norm_eps)
-        a_out, new_cache = attn.gqa_forward(
-            layer_p["attn"], h, cfg=cfg, positions=positions, window=window,
-            cache=cache, write_pos=write_pos)
+        if cfg.mla is not None:
+            a_out, new_cache = attn.mla_forward(
+                layer_p["attn"], h, cfg=cfg, positions=positions,
+                cache=cache, write_pos=write_pos)
+        else:
+            a_out, new_cache = attn.gqa_forward(
+                layer_p["attn"], h, cfg=cfg, positions=positions,
+                window=window, cache=cache, write_pos=write_pos,
+                mrope_positions=mrope_positions)
         x = x + a_out
         h = rms_norm(x, layer_p["pre_mlp_norm"]["scale"], cfg.norm_eps)
-        x = x + mlp_forward(layer_p["mlp"], h, cfg)
-        return x, new_cache
+        if cfg.moe:
+            # decode steps route droplessly (C = T = batch is small);
+            # train / prefill keep GShard capacity semantics
+            dropless = cache is not None and h.shape[1] == 1
+            m_out, aux = moe_mod.moe_forward(layer_p["moe"], h, cfg,
+                                             dropless=dropless)
+        else:
+            m_out = mlp_forward(layer_p["mlp"], h, cfg)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = x + m_out
+        return x, (new_cache if cache is not None else None), aux
 
-    def _run_stack(self, params, x, positions, cache, write_pos, *,
-                   remat: bool = False):
-        """The twin's ``lax.scan`` over layers as a loop over L."""
+    def _run_stack(self, params, x, positions, mrope_positions, cache,
+                   write_pos, *, remat: bool = False):
+        """The twin's ``lax.scan`` over layers as a loop over L. Returns
+        (x, new_cache, the sum of the layers' aux losses)."""
         if remat:
             _not_ported("remat (activation checkpointing)",
                         "12b (LM training)")
+        if cache is not None and "local" in cache:
+            return self._run_stack_split(params, x, positions, cache,
+                                         write_pos)
         windows = self.layer_windows()
-        new = []
+        new, auxs = [], []
         for i in range(self.cfg.n_layers):
             layer_p = tree_map(lambda p: p[i], params["layers"])
             layer_cache = (None if cache is None
                            else {k: v[i] for k, v in cache.items()})
-            x, c = self._layer_body(x, layer_p, int(windows[i]), layer_cache,
-                                    write_pos, positions)
+            x, c, aux = self._layer_body(x, layer_p, int(windows[i]),
+                                         layer_cache, write_pos, positions,
+                                         mrope_positions)
             new.append(c)
-        new_cache = (None if cache is None else
-                     {k: torch.stack([c[k] for c in new]) for k in cache})
+            auxs.append(aux)
+        new_cache = None if cache is None else _stacked(new, cache)
+        return x, new_cache, torch.sum(torch.stack(auxs))
+
+    def _run_stack_split(self, params, x, positions, cache, write_pos):
+        """The split-cache path: over the [local x (g-1), global] layer
+        groups, the windowed layers on their ring caches and the global
+        layer on its full cache. As in the twin, M-RoPE ids are not passed
+        and the aux loss is zero."""
+        G, nloc = self._split_geometry()
+        w = int(self.cfg.sliding_window)
+        layers = params["layers"]
+        new_local, new_global = [], []
+        for gi in range(G):
+            locals_ = []
+            for j in range(nloc):
+                i = gi * (nloc + 1) + j
+                x, c, _ = self._layer_body(
+                    x, tree_map(lambda p: p[i], layers), w,
+                    {k: v[gi, j] for k, v in cache["local"].items()},
+                    write_pos, positions, None)
+                locals_.append(c)
+            new_local.append(_stacked(
+                locals_, {k: v[gi] for k, v in cache["local"].items()}))
+            i = gi * (nloc + 1) + nloc
+            x, c, _ = self._layer_body(
+                x, tree_map(lambda p: p[i], layers), 0,
+                {k: v[gi] for k, v in cache["global"].items()},
+                write_pos, positions, None)
+            new_global.append(c)
+        new_cache = {"local": _stacked(new_local, cache["local"]),
+                     "global": _stacked(new_global, cache["global"])}
         return x, new_cache, torch.zeros((), dtype=torch.float32,
                                          device=x.device)
 
@@ -246,16 +329,23 @@ class DecoderLM:
                                 device=device)[None].expand(B, S)
         return torch.as_tensor(positions, device=device)
 
+    @staticmethod
+    def _mrope(batch_in, device):
+        m = batch_in.get("mrope_positions")
+        return None if m is None else torch.as_tensor(m, device=device)
+
     # ---------------- public entry points ----------------
     def forward(self, params, batch_in, *, remat: bool = False):
-        """Teacher-forced logits. batch_in: {'tokens' (B,S), optional
-        'positions'}. Returns (logits (B,S,V), aux)."""
+        """Teacher-forced logits. batch_in: {'tokens' (B,S) | 'embeds'
+        (B,S,d), optional 'positions', 'mrope_positions' (3,B,S)}.
+        Returns (logits (B,S,V), aux)."""
         cfg = self.cfg
         x = self._embed(params, batch_in)
         B, S = x.shape[0], x.shape[1]
         positions = self._positions(batch_in, B, S, x.device)
-        x, _, aux = self._run_stack(params, x, positions, None, None,
-                                    remat=remat)
+        x, _, aux = self._run_stack(params, x, positions,
+                                    self._mrope(batch_in, x.device), None,
+                                    None, remat=remat)
         x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
         return self._unembed(params, x), aux
 
@@ -286,19 +376,23 @@ class DecoderLM:
         x = self._embed(params, batch_in)
         B, S = x.shape[0], x.shape[1]
         positions = self._positions(batch_in, B, S, x.device)
-        x, new_cache, _ = self._run_stack(params, x, positions, cache, 0)
+        x, new_cache, _ = self._run_stack(
+            params, x, positions, self._mrope(batch_in, x.device), cache, 0)
         x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
         return self._unembed(params, x[:, -1:]), new_cache
 
     def decode_step(self, params, token_in, pos, cache):
-        """One decode step. token_in: {'tokens' (B,1)}; pos: the absolute
-        position (an int). Returns (logits (B,1,V), new_cache)."""
+        """One decode step. token_in: {'tokens' (B,1) | 'embeds' (B,1,d),
+        optional 'mrope_positions' (3,B,1)}; pos: the absolute position
+        (an int). Returns (logits (B,1,V), new_cache)."""
         cfg = self.cfg
         x = self._embed(params, token_in)
         B = x.shape[0]
         pos = int(pos)
         positions = torch.full((B, 1), pos, dtype=torch.int32,
                                device=x.device)
-        x, new_cache, _ = self._run_stack(params, x, positions, cache, pos)
+        x, new_cache, _ = self._run_stack(
+            params, x, positions, self._mrope(token_in, x.device), cache,
+            pos)
         x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
         return self._unembed(params, x), new_cache

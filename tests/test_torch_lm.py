@@ -1,23 +1,33 @@
-"""The dense LM serving path of the port (``repro_torch.models``,
+"""The attention-family LM serving path of the port (``repro_torch.models``,
 ``configs``, ``serving.BatchServer`` / ``Scheduler``, ``launch.steps`` /
-``serve``) against the JAX package, on REDUCED configs of both ported
-archs (granite-3-2b: GQA, swiglu; granite-20b: MQA, gelu), on the CPU.
+``serve``) against the JAX package, on REDUCED configs of the seven ported
+archs (granite-3-2b: GQA, swiglu; granite-20b: MQA, gelu; mixtral-8x7b:
+MoE top-2 with sliding-window rings; llama4-scout: MoE top-1 with a shared
+expert; gemma3-12b: local:global windows, q/k norm, geglu, scaled tied
+embeddings; minicpm3-4b: MLA; qwen2-vl-2b: the embeddings frontend), on
+the CPU. The blocks' own cases (MoE dispatch, MLA, M-RoPE, the split
+cache, bf16 scores) are in ``tests/test_torch_lm_blocks.py``.
 
 * The registry: each ported arch's CONFIG and REDUCED equal JAX's field for
   field (``dtype`` mapped); every JAX arch that is not ported is named in
   ``NOT_PORTED`` below and raises, naming its ROADMAP item.
 * ``init(prng.key(s))`` against ``init(jax.random.key(s))``: float32
   leaves to rtol 1e-6 (``prng.normal``), bfloat16 ones within one bf16
-  step; ``param_count`` equals JAX's and the leaves' count.
+  step; ``param_count`` equals JAX's, and the leaves' count but for the
+  norm scales the analytic count leaves out (q/k norm, MLA's latent norms).
 * On JAX's params (``convert.lm_params``), float32: ``forward`` logits to
   rtol / atol 1e-5, ``prefill`` + ``decode_step`` against the
-  teacher-forced logits at JAX's 2e-3, ``loss`` to rtol 1e-6.
+  teacher-forced logits at JAX's 2e-3 (MoE archs at ``capacity_factor =
+  E/k``, as JAX's own test), ``loss`` to rtol 1e-6, the MoE aux loss too.
 * bfloat16: one layer body byte-equal to JAX's op-by-op (eager) body
-  in at least ``LAYER_SAME_MIN`` of its elements;
-  the stack to ``BF16_TOL`` (XLA fuses the jitted scan body and drops
-  some bf16 roundings the eager ops keep); ``BatchServer`` greedy tokens
-  equal to JAX's up to the first step where JAX's own top-2 logit margin
-  is within ``BF16_MARGIN``.
+  in at least ``LAYER_SAME_MIN`` of its elements; the stack within
+  ``EAGER_RTOL`` / ``EAGER_ATOL`` of JAX's op-by-op stack, and within
+  ``BF16_TOL`` of JAX's jitted one (XLA fuses the jitted scan body and
+  drops some bf16 roundings the eager ops keep) or, where that fusion
+  moves JAX's own op-by-op stack further, no further from it than JAX's
+  op-by-op stack is; ``BatchServer`` greedy tokens
+  equal to JAX's up to the first step where JAX's own top-2 margin is
+  within ``BF16_MARGIN``.
 * ``rms_norm`` forward and backward equal to ``jax.vjp`` in float32, and
   bf16 at its boundaries; ``Scheduler.next_batch`` order; the launcher on
   ``--device cpu``.
@@ -47,17 +57,21 @@ from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch.steps import LMHarness, SkipCell  # noqa: E402
+from repro_torch.models import attention as tattention  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.serving import BatchServer, Request, Scheduler  # noqa: E402
 from repro_torch.tree import flatten_with_paths, tree_map  # noqa: E402
 
-ARCHS = ["granite-3-2b", "granite-20b"]
+ARCHS = ["granite-3-2b", "granite-20b", "mixtral-8x7b",
+         "llama4-scout-17b-a16e", "gemma3-12b", "minicpm3-4b", "qwen2-vl-2b"]
+# the archs the token launcher serves (qwen2-vl-2b has the embeddings
+# frontend: JAX's launcher refuses it, and it is served through the
+# harness's steps)
+SERVED = [a for a in ARCHS if a != "qwen2-vl-2b"]
 # the JAX archs the port does not have yet, each waiting for ROADMAP Queue 1
-# item 12a (other block families); an arch may leave this list only by
-# entering the port's ARCHS
-NOT_PORTED = ["mixtral-8x7b", "llama4-scout-17b-a16e", "gemma3-12b",
-              "minicpm3-4b", "whisper-large-v3", "qwen2-vl-2b",
-              "zamba2-1.2b", "rwkv6-7b"]
+# item 12a-ii (the non-attention families and whisper); an arch may leave
+# this list only by entering the port's ARCHS
+NOT_PORTED = ["whisper-large-v3", "zamba2-1.2b", "rwkv6-7b"]
 F32_TOL = 1e-5        # forward logits, float32: rtol and atol
 DECODE_TOL = 2e-3     # prefill / decode vs teacher forcing (JAX's own)
 # bf16 logits, port vs JAX's jitted forward: |d| <= atol + rtol |jax|,
@@ -71,6 +85,10 @@ BF16_MARGIN = 2 * 2.0 ** -5
 # one bf16 layer, port vs JAX's eager body: the share of byte-equal
 # elements (granite-3-2b: all; granite-20b's gelu: 1533 of 1536 at least)
 LAYER_SAME_MIN = 0.99
+# the bf16 stack, port vs JAX's op-by-op stack: |d| <= atol + rtol |jax|
+# (2^-7 measured at most, one bf16 step of a logit in [1, 2)), and the
+# share of byte-equal logits (98.4 % measured at least)
+EAGER_RTOL, EAGER_ATOL, EAGER_SAME_MIN = 2.0 ** -6, 2.0 ** -7, 0.98
 DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 
@@ -81,6 +99,16 @@ def _cfgs(arch, dtype=None):
         jcfg = dataclasses.replace(jcfg, dtype=dtype)
         tcfg = dataclasses.replace(tcfg, dtype=DTYPES[dtype])
     return jmod.build(jcfg), tmod.build(tcfg)
+
+
+def _teacher_forcing(cfg):
+    """``cfg`` with ``capacity_factor = E/k`` for MoE archs: capacity
+    dispatch is then dropless, so teacher-forced and incremental paths are
+    comparable (JAX's ``tests/test_models.py`` does the same)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
 
 
 def _jax_params(jmodel, seed):
@@ -113,6 +141,9 @@ def test_config_equals_jax_field_for_field(arch, which):
         a, b = getattr(jc, f.name), getattr(tc, f.name)
         if f.name == "dtype":
             assert DTYPES[a] == b
+        elif dataclasses.is_dataclass(a):  # MoEConfig, MLAConfig, ...
+            assert type(b).__name__ == type(a).__name__, f.name
+            assert dataclasses.asdict(b) == dataclasses.asdict(a), f.name
         else:
             assert a == b, f.name
     for prop in ("padded_vocab", "resolved_head_dim", "q_group"):
@@ -131,9 +162,9 @@ def test_registry_lists_every_jax_arch():
 
 @pytest.mark.parametrize("arch", NOT_PORTED)
 def test_unported_arch_raises_with_its_item(arch):
-    with pytest.raises(NotImplementedError, match="item 12a"):
+    with pytest.raises(NotImplementedError, match="item 12a-ii"):
         tconfigs.get_arch(arch)
-    with pytest.raises(NotImplementedError, match="item 12a"):
+    with pytest.raises(NotImplementedError, match="item 12a-ii"):
         LMHarness(arch)
 
 
@@ -144,24 +175,29 @@ def test_unknown_arch_is_a_key_error():
 
 def test_unported_blocks_and_steps_raise():
     base = tconfigs.get_arch("granite-3-2b").REDUCED
-    for change in (dict(moe=tcommon.MoEConfig(4, 2)),
-                   dict(mla=tcommon.MLAConfig()), dict(mrope=True),
-                   dict(block_kind="mamba2"), dict(block_kind="rwkv6"),
-                   dict(frontend="embeddings"), dict(split_cache=True),
-                   dict(attn_scores_bf16=True)):
-        with pytest.raises(NotImplementedError, match="item 12a"):
-            tconfigs.get_arch("granite-3-2b").build(
-                dataclasses.replace(base, **change))
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        tconfigs.get_arch("granite-3-2b").build(
-            dataclasses.replace(base, seq_parallel_attn=True))
+    build = tconfigs.get_arch("granite-3-2b").build
+    for kind in ("mamba2", "rwkv6"):
+        with pytest.raises(NotImplementedError, match="item 12a-ii"):
+            build(dataclasses.replace(base, block_kind=kind))
+    for lever in ("seq_parallel_attn", "moe_ep"):
+        with pytest.raises(NotImplementedError, match="item 12c"):
+            build(dataclasses.replace(base, **{lever: True}))
+    model = build(dataclasses.replace(base, dtype=torch.float32))
+    params = model.init(prng.key(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        model.forward(params, {"tokens": np.ones((1, 4), np.int32)},
+                      remat=True)
+    x = torch.zeros((1, 4, base.d_model))
+    with pytest.raises(NotImplementedError, match="item 12a-ii"):
+        tattention.gqa_forward(
+            tree_map(lambda t: t[0], params["layers"])["attn"], x,
+            cfg=model.cfg, positions=torch.zeros((1, 4), dtype=torch.int32),
+            kv_x=x)
     h = LMHarness("granite-3-2b", cfg=base)
     with pytest.raises(NotImplementedError, match="item 12b"):
         h.make_train_step(SHAPES["train_4k"])
     with pytest.raises(NotImplementedError, match="item 12c"):
         h.shardings(SHAPES["decode_32k"], None, "decode")
-    with pytest.raises(NotImplementedError, match="item 12a"):
-        tcommon.apply_mrope(None, None, 16, 1e4)
     with pytest.raises(SkipCell):
         h.cache_shapes(SHAPES["long_500k"])
 
@@ -189,6 +225,15 @@ def test_init_matches_jax(arch, dtype):
                 np.testing.assert_allclose(b, a, rtol=2.0 ** -7, atol=0)
 
 
+def uncounted_norms(cfg) -> int:
+    """The norm scales the analytic ``param_count`` leaves out: q/k norm
+    and MLA's two latent norms, per layer."""
+    per = 2 * cfg.resolved_head_dim if cfg.qk_norm else 0
+    if cfg.mla is not None:
+        per += cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank
+    return cfg.n_layers * per
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("which", ["CONFIG", "REDUCED"])
 def test_param_count_equals_the_leaves(arch, which):
@@ -197,7 +242,11 @@ def test_param_count_equals_the_leaves(arch, which):
     leaves = [t for _, t in flatten_with_paths(shapes)]
     assert all(t.device.type == "meta" and t.dtype == cfg.dtype
                for t in leaves)
-    assert sum(t.numel() for t in leaves) == cfg.param_count()
+    n = sum(t.numel() for t in leaves)
+    assert n == cfg.param_count() + uncounted_norms(cfg)
+    jleaves = jax.tree.leaves(JHarness(
+        arch, cfg=getattr(jconfigs.get_arch(arch), which)).param_shapes())
+    assert n == sum(int(np.prod(s.shape)) for s in jleaves)
 
 
 def test_chunked_normal_equals_jax(monkeypatch):
@@ -239,7 +288,11 @@ def test_forward_and_loss_match_jax_f32(arch):
     assert tl.shape == jl.shape and tl.dtype == torch.float32
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=F32_TOL,
                                atol=F32_TOL)
-    assert float(taux) == float(jaux) == 0.0
+    if jmodel.cfg.moe is None:
+        assert float(taux) == float(jaux) == 0.0
+    else:  # the sum of the layers' router balance losses
+        assert float(jaux) > 0
+        np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
     batch = {"tokens": toks, "targets": np.roll(toks, -1, axis=1)}
     jloss, jparts = jmodel.loss(jp, jax.tree.map(jnp.asarray, batch))
     tloss, tparts = tmodel.loss(tp, {k: torch.from_numpy(v)
@@ -248,13 +301,18 @@ def test_forward_and_loss_match_jax_f32(arch):
     for k in ("ce", "z_loss"):
         np.testing.assert_allclose(float(tparts[k]), float(jparts[k]),
                                    rtol=1e-5)
+    np.testing.assert_allclose(float(tparts["aux"]), float(jparts["aux"]),
+                               rtol=1e-6)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_matches_forward_f32(arch):
     """``tests/test_models.py::test_prefill_decode_matches_forward`` on the
-    port, with JAX's teacher-forced logits as the reference too."""
+    port, with JAX's teacher-forced logits as the reference too (MoE archs
+    at ``capacity_factor = E/k``)."""
     jmodel, tmodel = _cfgs(arch, jnp.float32)
+    jmodel = type(jmodel)(_teacher_forcing(jmodel.cfg))
+    tmodel = type(tmodel)(_teacher_forcing(tmodel.cfg))
     jp, tp = _jax_params(jmodel, 1)
     B, S, k = 2, 12, 6
     toks = _tokens(0, (B, S), jmodel.cfg.vocab_size)
@@ -293,16 +351,21 @@ def test_layer_body_bf16_equals_jax_eager(arch):
     jmodel, tmodel = _cfgs(arch)
     jp, tp = _jax_params(jmodel, 0)
     toks = _tokens(0, (2, 12), jmodel.cfg.vocab_size)
-    jx = jnp.take(jp["embed"]["table"], jnp.asarray(toks), axis=0)
-    tx = tp["embed"]["table"][torch.from_numpy(toks).long()]
+    jx = jmodel._embed(jp, {"tokens": jnp.asarray(toks)})
+    tx = tmodel._embed(tp, {"tokens": torch.from_numpy(toks)})
+    assert np.array_equal(np.asarray(jx).view(np.int16),
+                          tx.view(torch.int16).numpy())
     pos_j = jnp.broadcast_to(jnp.arange(12, dtype=jnp.int32)[None], (2, 12))
     pos_t = torch.arange(12, dtype=torch.int32)[None].expand(2, 12)
+    windows = jmodel.layer_windows()
     for i in range(jmodel.cfg.n_layers):
         jl = jax.tree.map(lambda a: a[i], jp["layers"])
         tl = tree_map(lambda t: t[i], tp["layers"])
-        jy, _, _ = jmodel._layer_body(jx, jl, jnp.int32(0), None, None,
-                                      pos_j, None)
-        ty, _ = tmodel._layer_body(tx, tl, 0, None, None, pos_t)
+        jy, _, jaux = jmodel._layer_body(jx, jl, jnp.int32(windows[i]),
+                                         None, None, pos_j, None)
+        ty, _, taux = tmodel._layer_body(tx, tl, int(windows[i]), None,
+                                         None, pos_t)
+        np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
         assert ty.dtype == torch.bfloat16
         same = np.asarray(jy).view(np.int16) == ty.view(torch.int16).numpy()
         assert same.mean() >= LAYER_SAME_MIN, f"layer {i}"
@@ -310,8 +373,38 @@ def test_layer_body_bf16_equals_jax_eager(arch):
                                    atol=2.0 ** -14, err_msg=f"layer {i}")
 
 
+def _jax_eager_logits(jmodel, jp, toks):
+    """JAX's forward op by op: its layer body, final norm and unembed run
+    eagerly, one op at a time (no jitted scan body)."""
+    B, S = toks.shape
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (B, S))
+    windows = jmodel.layer_windows()
+    with jax.disable_jit():
+        x = jmodel._embed(jp, {"tokens": jnp.asarray(toks)})
+        for i in range(jmodel.cfg.n_layers):
+            x, _, _ = jmodel._layer_body(
+                x, jax.tree.map(lambda a: a[i], jp["layers"]),
+                jnp.int32(windows[i]), None, None, pos, None)
+        x = jcommon.rms_norm(x, jp["final_norm"]["scale"],
+                             jmodel.cfg.norm_eps)
+        return jmodel._unembed(jp, x)
+
+
+def _tol_ratio(got, want, rtol, atol) -> float:
+    """max |got - want| / (atol + rtol |want|)."""
+    return float((np.abs(got - want) / (atol + rtol * np.abs(want))).max())
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_bf16_within_tolerance(arch):
+    """The bf16 stack: within EAGER_RTOL / EAGER_ATOL of JAX's op-by-op
+    stack (EAGER_SAME_MIN of it byte-equal), and within BF16_TOL of JAX's
+    jitted forward. Where XLA's fused scan body moves JAX's own op-by-op
+    stack further than BF16_TOL from the jitted one (a bf16 rounding that
+    sends a token to another expert, mixtral's seed 1; 1.02-1.19 x
+    BF16_TOL in llama4-scout and minicpm3), the port is held no further
+    from the jitted forward than that, plus its own gap to the op-by-op
+    stack."""
     jmodel, tmodel = _cfgs(arch)
     jp, tp = _jax_params(jmodel, 0)
     for seed in (0, 1):
@@ -319,8 +412,16 @@ def test_forward_bf16_within_tolerance(arch):
         jl, _ = jmodel.forward(jp, {"tokens": jnp.asarray(toks)})
         tl, _ = tmodel.forward(tp, {"tokens": torch.from_numpy(toks)})
         assert tl.dtype == torch.bfloat16
-        np.testing.assert_allclose(_np(tl), _np(jl), rtol=BF16_TOL,
-                                   atol=BF16_TOL)
+        je = _jax_eager_logits(jmodel, jp, toks)
+        same = np.asarray(je).view(np.int16) == tl.view(torch.int16).numpy()
+        assert same.mean() >= EAGER_SAME_MIN, (seed, same.mean())
+        np.testing.assert_allclose(_np(tl), _np(je), rtol=EAGER_RTOL,
+                                   atol=EAGER_ATOL)
+        to_jit = _tol_ratio(_np(tl), _np(jl), BF16_TOL, BF16_TOL)
+        eager_to_jit = _tol_ratio(_np(je), _np(jl), BF16_TOL, BF16_TOL)
+        to_eager = _tol_ratio(_np(tl), _np(je), BF16_TOL, BF16_TOL)
+        bound = 1.0 if eager_to_jit <= 1.0 else eager_to_jit + to_eager
+        assert to_jit <= bound, (seed, to_jit, eager_to_jit)
 
 
 def _requests(rng, n, vocab, max_new):
@@ -356,7 +457,7 @@ def _jax_margins(jmodel, jp, batch, max_seq, n_steps):
     return np.stack(margins, 1)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_batch_server_greedy_tokens_match_jax(arch):
     """A ``Scheduler``-batched request set through both ``BatchServer``s
     (bf16): the same batches, and each request's tokens equal up to the
@@ -462,12 +563,13 @@ def test_harness_shapes_match_jax(arch):
     jh = JHarness(arch, cfg=jconfigs.get_arch(arch).REDUCED)
     th = LMHarness(arch, cfg=tconfigs.get_arch(arch).REDUCED)
     shape = SHAPES["decode_32k"]
-    jc = jh.cache_shapes(jconfigs.SHAPES["decode_32k"])
-    tc = th.cache_shapes(shape)
-    assert sorted(tc) == sorted(jc)
-    for k in jc:
-        assert tuple(tc[k].shape) == jc[k].shape and tc[k].device.type == (
-            "meta")
+    jc = jax.tree_util.tree_flatten_with_path(
+        jh.cache_shapes(jconfigs.SHAPES["decode_32k"]))[0]
+    tc = flatten_with_paths(th.cache_shapes(shape))
+    assert [jax.tree_util.keystr(p) for p, _ in jc] == [
+        "".join(f"['{k}']" for k in p) for p, _ in tc]
+    for (_, a), (_, b) in zip(jc, tc):
+        assert tuple(b.shape) == a.shape and b.device.type == "meta"
     assert tuple(th.token_shapes(shape)["tokens"].shape) == (
         jh.token_shapes(jconfigs.SHAPES["decode_32k"])["tokens"].shape)
 
@@ -475,9 +577,10 @@ def test_harness_shapes_match_jax(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_harness_steps_serve_greedy(arch):
     """``make_prefill_step`` / ``make_decode_step`` (float32) against the
-    model's own forward: the greedy tokens of teacher forcing."""
-    cfg = dataclasses.replace(tconfigs.get_arch(arch).REDUCED,
-                              dtype=torch.float32)
+    model's own forward: the greedy tokens of teacher forcing (MoE archs
+    at ``capacity_factor = E/k``)."""
+    cfg = _teacher_forcing(dataclasses.replace(
+        tconfigs.get_arch(arch).REDUCED, dtype=torch.float32))
     h = LMHarness(arch, cfg=cfg)
     params = h.model.init(prng.key(2), device="cpu")
     shape = tconfigs.Shape("tiny", 10, 2, "decode")
