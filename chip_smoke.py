@@ -150,7 +150,22 @@ in phases that each exit non-zero on failure:
    vocabulary. In float32 (IEEE products) each arch cut to 12 (gemma3:
    two local:global groups), 2, or 1 (llama4-scout) layers: prefill +
    decode against teacher forcing (MoE at capacity_factor E/k; rtol /
-   atol 2e-3) and the cut's logits card against host (1e-3).
+   atol 2e-3) and the cut's logits card against host (1e-3);
+13. drives the non-attention LM families and whisper at full width
+   (``--seed`` draws their inputs): zamba2-1.2b (38 Mamba2 layers, one
+   shared attention block invoked six times with its LoRA deltas) and
+   rwkv6-7b (32 layers) whole through ``launch.serve --full`` in bf16 at
+   the launcher's defaults; whisper-large-v3 whole (32 + 32 layers, the
+   32768-row position table) through ``LMHarness``'s prefill and decode
+   steps at ``Shape("whisper_1500", 3000, 4)``: 1500 frames (4, 1500,
+   1280) encoded once with their cross K/V cached, a 4-token prompt, 32
+   greedy decode steps, the harness's decode step giving the same tokens.
+   Each prints what phase 12 prints (its param count == the JAX
+   package's leaves); every logit finite, every token in the vocabulary.
+   In float32 each arch cut to 12 (zamba2: two shared-block
+   invocations), 4 (rwkv6) or 4 + 4 (whisper, its 64-row table) layers:
+   prefill + decode against teacher forcing (2e-3) and card against host
+   (1e-3).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -2880,18 +2895,31 @@ def uncounted_norms(cfg) -> int:
     return cfg.n_layers * per
 
 
+# the JAX package's leaves of these archs' CONFIGs (its ``LMHarness.
+# param_shapes`` on the CPU): its analytic ``param_count`` does not
+# describe them (zamba2's shared block and LoRA, rwkv6's mixes and decay,
+# whisper's encoder and position table)
+JAX_LEAVES = {"zamba2-1.2b": 1106350208, "rwkv6-7b": 7534415872,
+              "whisper-large-v3": 1577530880}
+
+
 def lm_size(arch, cfg) -> tuple[int, int]:
     """(params, bytes) of ``cfg``'s leaves, drawn on ``meta``; the count
-    must be ``param_count()`` plus the norm scales it leaves out."""
+    must be ``param_count()`` plus the norm scales it leaves out, or, for
+    the archs of JAX_LEAVES, the JAX package's leaves."""
     from repro_torch.launch.steps import LMHarness
     from repro_torch.tree import flatten_with_paths
 
     leaves = [t for _, t in flatten_with_paths(
         LMHarness(arch, cfg=cfg).param_shapes())]
     n = sum(t.numel() for t in leaves)
-    check(n == cfg.param_count() + uncounted_norms(cfg),
-          f"{arch}: {n} leaves != param_count {cfg.param_count()} + "
-          f"{uncounted_norms(cfg)} norm scales")
+    if arch in JAX_LEAVES:
+        check(n == JAX_LEAVES[arch],
+              f"{arch}: {n} leaves != JAX's {JAX_LEAVES[arch]}")
+    else:
+        check(n == cfg.param_count() + uncounted_norms(cfg),
+              f"{arch}: {n} leaves != param_count {cfg.param_count()} + "
+              f"{uncounted_norms(cfg)} norm scales")
     return n, sum(t.numel() * t.element_size() for t in leaves)
 
 
@@ -3180,7 +3208,8 @@ def zoo_vl(np, torch, seed) -> dict:
 
 def zoo_f32(np, torch, arch, layers, seed) -> dict:
     """Float32 (IEEE products) at full width, depth cut to ``layers``:
-    prefill + decode against teacher forcing (MoE at capacity_factor E/k),
+    prefill + decode against teacher forcing (MoE at capacity_factor E/k;
+    whisper with WHISPER_CUT_FRAMES frames, its self cache of the tokens),
     then the same params' logits card against host."""
     import dataclasses
 
@@ -3206,6 +3235,12 @@ def zoo_f32(np, torch, arch, layers, seed) -> dict:
 
         def inputs(a, b):
             return {"embeds": emb[:, a:b], "mrope_positions": p3[:, :, a:b]}
+    elif arch == WHISPER:
+        enc, toks = whisper_inputs(np, torch, cfg, rng, B,
+                                   WHISPER_CUT_FRAMES, S, torch.float32)
+
+        def inputs(a, b):
+            return {"enc_embeds": enc, "tokens": toks[:, a:b]}
     else:
         toks = torch.from_numpy(rng.integers(
             1, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
@@ -3216,7 +3251,10 @@ def zoo_f32(np, torch, arch, layers, seed) -> dict:
         full, _ = model.forward(params, inputs(0, S))
         check(bool(torch.isfinite(full).all()),
               f"{arch}: float32 logits not finite")
-        cache = model.init_cache(B, S, device="cuda")
+        if arch == WHISPER:
+            cache = model.init_cache(B, S, WHISPER_CUT_FRAMES, device="cuda")
+        else:
+            cache = model.init_cache(B, S, device="cuda")
         logits, cache = model.prefill(params, inputs(0, k), cache)
         worst = worst_ratio(logits[:, 0], full[:, k - 1], LM_DECODE_TOL)
         for pos in range(k, S):
@@ -3302,12 +3340,121 @@ def phase_lm_zoo(np, torch, card, seed) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 13: the non-attention LM families and whisper at full width
+# --------------------------------------------------------------------------
+ZOO_RECURRENT = ("zamba2-1.2b", "rwkv6-7b")  # whole, through launch.serve
+WHISPER = "whisper-large-v3"
+# whisper through the harness: S // 2 = 1500 encoder frames (its 30 s audio
+# context) and 1500 self-cache slots, B 4; a 4-token prompt, then 32
+# greedy decode steps
+WHISPER_SHAPE = ("whisper_1500", 3000, 4)
+WHISPER_PROMPT, WHISPER_DECODE = 4, 32
+WHISPER_CUT_FRAMES = 16     # encoder frames of whisper's float32 cut
+# float32 depth cuts of full width for teacher forcing and card vs host:
+# zamba2 keeps two shared-block invocations (after layers 5 and 11);
+# whisper 4 encoder + 4 decoder layers, its position table 64 rows (the
+# build's identity test)
+ZOO_RECURRENT_CUTS = {"zamba2-1.2b": 12, "rwkv6-7b": 4, WHISPER: 4}
+
+
+def whisper_inputs(np, torch, cfg, rng, B, F, S, dtype):
+    """Frame embeddings (B, F, d) of ``dtype`` and tokens (B, S) on the
+    card."""
+    enc = torch.from_numpy(rng.normal(0, 0.1, (B, F, cfg.d_model)).astype(
+        np.float32)).to(dtype).cuda()
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, S)).astype(
+        np.int32)).cuda()
+    return enc, toks
+
+
+def zoo_whisper(np, torch, seed) -> dict:
+    """whisper-large-v3, whole (CONFIG: the 32768-row position table),
+    through ``LMHarness``'s prefill and decode steps in bf16 at
+    WHISPER_SHAPE: 1500 frames from ``seed`` encoded once, their cross K/V
+    cached, a 4-token prompt, 32 greedy decode steps."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.core import prng
+    from repro_torch.launch.steps import LMHarness
+
+    cfg = configs.get_arch(WHISPER).CONFIG
+    n, nbytes = lm_size(WHISPER, cfg)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    h = LMHarness(WHISPER)
+    check(h.model.max_dec_len == 1 << 15,
+          f"whisper CONFIG built with {h.model.max_dec_len} position rows")
+    t0 = time.perf_counter()
+    params = h.model.init(prng.key(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    shape = Shape(*WHISPER_SHAPE, "prefill")
+    B, F = shape.global_batch, shape.seq_len // 2
+    enc, prompt = whisper_inputs(np, torch, cfg, np.random.default_rng(seed),
+                                 B, F, WHISPER_PROMPT, cfg.dtype)
+    check(tuple(h.batch_shapes(shape)["enc_embeds"].shape)
+          == tuple(enc.shape) == (4, 1500, 1280), "whisper input shapes")
+    prefill_step = h.make_prefill_step(shape, device="cuda")
+    decode_step = h.make_decode_step(shape)
+
+    @torch.inference_mode()
+    def decode(tok, cache, s):
+        return h.model.decode_step(params, {"tokens": tok},
+                                   WHISPER_PROMPT + s, cache)
+
+    first_in = {"enc_embeds": enc, "tokens": prompt}
+    out, wall, step = greedy_run(
+        np, torch, lambda b: prefill_step(params, b), decode, first_in,
+        WHISPER_DECODE + 1, cfg.vocab_size, WHISPER)
+    # the harness's decode step gives the same greedy tokens
+    logits, cache = prefill_step(params, first_in)
+    check(tuple(cache["cross"]["k"].shape) == (32, 4, 1500, 20, 64)
+          and tuple(cache["self"]["k"].shape) == (32, 4, 1500, 20, 64),
+          "whisper cache shapes")
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    got = [tok]
+    for s in range(WHISPER_DECODE):
+        tok, cache = decode_step(params, cache, {"tokens": tok},
+                                 WHISPER_PROMPT + s)
+        got.append(tok)
+    check(torch.equal(torch.cat(got, dim=1).cpu(), out),
+          "whisper: the harness's decode step's tokens differ")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache, logits
+    free_card(torch)
+    return {"arch": WHISPER, "layers": cfg.n_layers, "params": n,
+            "param_bytes": nbytes, "init_s": init_s, "tokens": out.numel(),
+            "wall_s": wall, "tokens_per_s": out.numel() / wall,
+            "peak_bytes": peak, "step": step}
+
+
+def phase_lm_zoo_recurrent(np, torch, card, seed) -> dict:
+    """zamba2-1.2b and rwkv6-7b whole through ``launch.serve --full``;
+    whisper-large-v3 whole through the harness's steps with 1500 frames;
+    each arch's float32 depth cut against teacher forcing and card against
+    host."""
+    out = {}
+    for arch in ZOO_RECURRENT:
+        out[arch] = zoo_served_arch(np, torch, arch, seed)
+    out[WHISPER] = zoo_whisper(np, torch, seed)
+    for arch, layers in ZOO_RECURRENT_CUTS.items():
+        out[arch]["f32"] = zoo_f32(np, torch, arch, layers, seed)
+    for arch, how in (("zamba2-1.2b", "launch.serve --full, whole"),
+                      ("rwkv6-7b", "launch.serve --full, whole"),
+                      (WHISPER, "LMHarness steps, 1500 frames, whole")):
+        log_zoo(out[arch], how, out[arch]["f32"], card)
+    return out
+
+
+# --------------------------------------------------------------------------
 def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of phase 12's tokens, embeddings and ids")
+                    help="seed of phases 12 and 13's tokens, embeddings, "
+                    "ids and frames")
     args = ap.parse_args()
     t_start = time.perf_counter()
     try:
@@ -3411,6 +3558,10 @@ def main() -> None:
     log("phase 12: the attention-family LM blocks at full width on the "
         "card")
     phase_lm_zoo(np, torch, card, args.seed)
+
+    log("phase 13: the non-attention LM families and whisper at full width "
+        "on the card")
+    phase_lm_zoo_recurrent(np, torch, card, args.seed)
     check_no_jax()
 
     print(card, flush=True)  # name, power limit as nvidia-smi gives them

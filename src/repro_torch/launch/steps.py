@@ -6,9 +6,11 @@ Twin of the serving half of :mod:`repro.launch.steps`:
     and dtypes, nothing drawn or allocated), where the twin uses
     ``eval_shape``;
   * ``batch_shapes`` / ``token_shapes`` / ``cache_shapes`` — ``meta``
-    tensors standing in for the step inputs (tokens, or ``embeds`` and
-    ``mrope_positions`` for the embeddings frontend) and the caches (GQA
-    rings, MLA latents, the split layout), as the twin's
+    tensors standing in for the step inputs (tokens, ``embeds`` and
+    ``mrope_positions`` for the embeddings frontend, or whisper's
+    ``enc_embeds`` with its decoder tokens, each half the shape's
+    sequence) and the caches (GQA rings, MLA latents, the split layout,
+    recurrent states, whisper's self and cross caches), as the twin's
     ``ShapeDtypeStruct``s do;
   * ``make_prefill_step`` — build + fill KV caches;
   * ``make_decode_step``  — one greedy token against the cache (with
@@ -65,16 +67,17 @@ class LMHarness:
     def batch_shapes(self, shape: Shape) -> dict:
         """Inputs for train / prefill kinds (decode uses token_shapes)."""
         self.check_cell(shape)
-        if self.is_whisper:
-            raise NotImplementedError(
-                "whisper's batch shapes are not ported yet: ROADMAP Queue 1 "
-                "item 12a-ii (the non-attention families and whisper)")
         B, S = shape.global_batch, shape.seq_len
         cfg = self.cfg
 
         def i32(*dims):
             return torch.empty(dims, dtype=torch.int32, device=_META)
 
+        if self.is_whisper:
+            half = S // 2
+            return {"enc_embeds": torch.empty((B, half, cfg.d_model),
+                                              dtype=cfg.dtype, device=_META),
+                    "tokens": i32(B, half), "targets": i32(B, half)}
         if cfg.frontend == "embeddings":
             out = {"embeds": torch.empty((B, S, cfg.d_model),
                                          dtype=cfg.dtype, device=_META),
@@ -86,8 +89,15 @@ class LMHarness:
 
     def cache_shapes(self, shape: Shape) -> dict:
         self.check_cell(shape)
-        return self.model.init_cache(shape.global_batch, shape.seq_len,
-                                     device=_META)
+        return self._init_cache(shape, _META)
+
+    def _init_cache(self, shape: Shape, device) -> dict:
+        """A fresh cache of ``shape``: whisper's self and cross caches of
+        ``seq_len // 2`` each, the others' of ``seq_len``."""
+        B, S = shape.global_batch, shape.seq_len
+        if self.is_whisper:
+            return self.model.init_cache(B, S // 2, S // 2, device=device)
+        return self.model.init_cache(B, S, device=device)
 
     def token_shapes(self, shape: Shape) -> dict:
         """Decode-step inputs (one new token)."""
@@ -106,13 +116,12 @@ class LMHarness:
     def make_prefill_step(self, shape: Shape, *, device="cuda"):
         """``prefill(params, batch) -> (last logits, cache)`` with a fresh
         cache of ``shape`` on ``device``."""
-        B, S = shape.global_batch, shape.seq_len
         model = self.model
 
         @torch.inference_mode()
         def prefill(params, batch):
-            cache = model.init_cache(B, S, device=device)
-            return model.prefill(params, batch, cache)
+            return model.prefill(params, batch,
+                                 self._init_cache(shape, device))
 
         return prefill
 

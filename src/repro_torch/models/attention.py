@@ -1,4 +1,5 @@
-"""Attention blocks: GQA / MQA (+ SWA, local:global, M-RoPE) and MLA.
+"""Attention blocks: GQA / MQA (+ SWA, local:global, M-RoPE, cross) and
+MLA.
 
 Twin of :mod:`repro.models.attention`, in plain torch with the twin's
 arithmetic: float32 scores and softmax (or, with ``attn_scores_bf16``,
@@ -16,10 +17,11 @@ prefill and decode:
 MLA (minicpm3) caches only the latent ``ckv`` and the shared rope key
 ``k_rope`` and expands them per head at every call.
 
-Caches are dicts of tensors; an update returns new tensors and leaves the
-caller's cache as it was, as the twin's functional updates do.
-Cross-attention (whisper) waits for ROADMAP Queue 1 item 12a-ii and the
-context-parallel path for item 12c: both raise.
+Cross-attention (whisper) takes K and V from ``kv_x``: no rotary, no
+causal mask, no cache update. Caches are dicts of tensors; an update
+returns new tensors and leaves the caller's cache as it was, as the
+twin's functional updates do. The context-parallel path waits for item
+12c (``DecoderLM`` raises for it).
 """
 
 from __future__ import annotations
@@ -176,38 +178,40 @@ def gqa_forward(
     kv_x=None,
     kv_positions=None,
 ):
-    """Returns (out (B,S,d), new_cache)."""
-    if kv_x is not None or kv_positions is not None:
-        _not_ported("cross-attention (whisper)",
-                    "12a-ii (the non-attention families and whisper)")
+    """Returns (out (B,S,d), new_cache). With ``kv_x`` (B, T, d), K and V
+    come from it (cross-attention): no rotary, no causal mask, and the
+    cache, if any, is returned as it was. K is never biased (the twin's
+    ``init_gqa(bias=True)`` makes ``bq``, ``bv``, ``bo``)."""
     hd = cfg.resolved_head_dim
     B, S = x.shape[0], x.shape[1]
+    src = kv_x if kv_x is not None else x
     q = x @ p["wq"]
-    v = x @ p["wv"]
+    v = src @ p["wv"]
     if "bq" in p:
         q = q + p["bq"]
     if "bv" in p:
         v = v + p["bv"]
     q = _split_heads(q, cfg.n_heads, hd)
-    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, hd)
+    k = _split_heads(src @ p["wk"], cfg.n_kv_heads, hd)
     v = _split_heads(v, cfg.n_kv_heads, hd)
 
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
 
-    # M-RoPE only where its position ids are given (prefill of the
-    # embeddings frontend); 1-D rope otherwise, as at decode
-    if cfg.mrope and mrope_positions is not None:
-        q = apply_mrope(q, mrope_positions, hd, cfg.rope_theta)
-        k = apply_mrope(k, mrope_positions, hd, cfg.rope_theta)
-    elif not cfg.attn_bias:  # whisper uses learned abs pos, no rope
-        cos, sin = make_rope(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    if kv_x is None:  # self-attention: rotary on q and k
+        # M-RoPE only where its position ids are given (prefill of the
+        # embeddings frontend); 1-D rope otherwise, as at decode
+        if cfg.mrope and mrope_positions is not None:
+            q = apply_mrope(q, mrope_positions, hd, cfg.rope_theta)
+            k = apply_mrope(k, mrope_positions, hd, cfg.rope_theta)
+        elif not cfg.attn_bias:  # whisper uses learned abs pos, no rope
+            cos, sin = make_rope(positions, hd, cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
 
     new_cache = cache
-    if cache is not None:
+    if cache is not None and kv_x is None:
         cache_len = cache["k"].shape[1]
         if write_pos is None:
             raise ValueError("cache updates require write_pos")
@@ -242,11 +246,18 @@ def gqa_forward(
             pos_k = new_cache["slot_pos"][None].expand(B, cache_len)
     else:
         k_att, v_att = k, v
-        pos_k = positions
+        if kv_positions is not None:
+            pos_k = torch.as_tensor(kv_positions, device=x.device)
+        elif kv_x is None:
+            pos_k = positions
+        else:
+            T = src.shape[1]
+            pos_k = torch.arange(T, dtype=torch.int32,
+                                 device=x.device)[None].expand(B, T)
 
     out = sdpa(q, k_att.to(q.dtype), v_att.to(q.dtype), positions, pos_k,
-               causal=causal, window=window, q_group=cfg.q_group,
-               scores_bf16=cfg.attn_scores_bf16)
+               causal=causal and kv_x is None, window=window,
+               q_group=cfg.q_group, scores_bf16=cfg.attn_scores_bf16)
     out = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
     if "bo" in p:
         out = out + p["bo"]

@@ -24,7 +24,8 @@ from repro_torch.core import prng
 __all__ = [
     "MoEConfig", "MLAConfig", "SSMConfig", "RWKVConfig", "TransformerConfig",
     "rms_norm", "layer_norm", "make_rope", "apply_rope", "apply_mrope",
-    "cross_entropy_loss", "dense_init", "silu", "gelu",
+    "cross_entropy_loss", "dense_init", "silu", "gelu", "sigmoid",
+    "softplus",
 ]
 
 # --------------------------------------------------------------------------
@@ -291,9 +292,21 @@ def _const(x, value: float) -> torch.Tensor:
     return torch.full((), value, dtype=x.dtype, device=x.device)
 
 
+def sigmoid(x):
+    """``jax.nn.sigmoid`` (``lax.logistic``): ``1 / (1 + exp(-x))``."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x):
     """``jax.nn.silu``: ``x * (1 / (1 + exp(-x)))``."""
-    return x * (1 / (1 + torch.exp(-x)))
+    return x * sigmoid(x)
+
+
+def softplus(x):
+    """``jax.nn.softplus``, which is ``jnp.logaddexp(x, 0)``: ``max(x, 0) +
+    log1p(exp(-|x|))``. ``torch.nn.functional.softplus`` is another
+    formula (linear past a threshold of 20)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
 def gelu(x):

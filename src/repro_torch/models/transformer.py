@@ -1,22 +1,24 @@
-"""Decoder-only LM stack: the attention family.
+"""Decoder-only LM stack parameterized over the families.
 
-Twin of :mod:`repro.models.transformer` for ``block_kind="attn"``: GQA /
-MQA (granite-3, granite-20b), MoE with sliding-window rings (mixtral) or
-a shared expert (llama4-scout), 5:1 local:global windows with q/k norm,
-geglu, scaled tied embeddings and split caches (gemma3), MLA (minicpm3),
-M-RoPE with the embeddings frontend (qwen2-vl). The twin scans one layer
+Twin of :mod:`repro.models.transformer`: GQA / MQA (granite-3,
+granite-20b), MoE with sliding-window rings (mixtral) or a shared expert
+(llama4-scout), 5:1 local:global windows with q/k norm, geglu, scaled
+tied embeddings and split caches (gemma3), MLA (minicpm3), M-RoPE with
+the embeddings frontend (qwen2-vl), RWKV6 (rwkv6-7b, attention-free) and
+the Mamba2 backbone (the zamba2 hybrid wrapper lives in ``zamba2.py``,
+whisper's encoder-decoder in ``whisper.py``). The twin scans one layer
 body over stacked params (leading L axis, as ``vmap`` stacks them); here
 the same stacked params are walked by a Python loop over L (and over the
 [local x (g-1), global] groups of the split cache). Three entry points
 share the layer body:
 
   * ``forward``      — teacher-forced logits (train / eval)
-  * ``prefill``      — forward + populate the KV caches, last-token logits
+  * ``prefill``      — forward + populate the caches, last-token logits
   * ``decode_step``  — one token against the stacked caches
 
-Mamba2 and RWKV6 blocks wait for ROADMAP Queue 1 item 12a-ii,
-rematerialisation for item 12b, ``seq_parallel_attn`` and ``moe_ep`` for
-item 12c: ``DecoderLM`` raises for them and names the item.
+Rematerialisation waits for ROADMAP Queue 1 item 12b,
+``seq_parallel_attn`` and ``moe_ep`` for item 12c: ``DecoderLM`` raises
+for them and names the item.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ import torch
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv6 as rk
 from repro_torch.models.common import (
     TransformerConfig,
     cross_entropy_loss,
@@ -42,10 +46,8 @@ from repro_torch.tree import tree_map
 
 __all__ = ["DecoderLM", "init_mlp", "mlp_forward"]
 
-_BLOCKS = "12a-ii (the non-attention families and whisper)"
 
-
-def _not_ported(what: str, item: str = _BLOCKS):
+def _not_ported(what: str, item: str):
     attn._not_ported(what, item)
 
 
@@ -89,6 +91,25 @@ def mlp_forward(p: dict, x, cfg: TransformerConfig):
     return h
 
 
+def _stack_into(n: int, make, cast) -> dict:
+    """``n`` trees ``make(i)`` (a layer each, drawn on its own key), cast
+    and written into leaves stacked on a new leading axis, one tree alive
+    at a time."""
+    stacked = None
+    for i in range(n):
+        tree = tree_map(cast, make(i))
+        if stacked is None:
+            stacked = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)),
+                               tree)
+        tree_map(lambda s, t: s[i].copy_(t), stacked, tree)
+        del tree
+    return stacked
+
+
+def _expanded(cache: dict, lead: tuple) -> dict:
+    """A fresh cache: each leaf of ``cache`` repeated over ``lead``."""
+    return {k: v.expand(lead + tuple(v.shape)).clone()
+            for k, v in cache.items()}
 
 
 def _stacked(caches: list, like: dict) -> dict:
@@ -106,9 +127,7 @@ class DecoderLM:
 
     def __post_init__(self):
         cfg = self.cfg
-        if cfg.block_kind in ("mamba2", "rwkv6"):
-            _not_ported(f"block_kind={cfg.block_kind!r}")
-        if cfg.block_kind != "attn":
+        if cfg.block_kind not in ("attn", "mamba2", "rwkv6"):
             raise ValueError(cfg.block_kind)
         for field in ("seq_parallel_attn", "moe_ep"):
             if getattr(cfg, field):
@@ -130,16 +149,10 @@ class DecoderLM:
             "final_norm": {"scale": cast(torch.zeros((cfg.d_model,),
                                                      device=dev))},
         }
-        # each layer drawn on its own key, written into the stacked leaves
-        stacked = None
-        for i, k in enumerate(prng.split(k_layers, cfg.n_layers)):
-            layer = tree_map(cast, self._layer_init(k, dev))
-            if stacked is None:
-                stacked = tree_map(lambda t: t.new_empty(
-                    (cfg.n_layers,) + tuple(t.shape)), layer)
-            tree_map(lambda s, t: s[i].copy_(t), stacked, layer)
-            del layer
-        params["layers"] = stacked
+        layer_keys = prng.split(k_layers, cfg.n_layers)
+        params["layers"] = _stack_into(
+            cfg.n_layers, lambda i: self._layer_init(layer_keys[i], dev),
+            cast)
         if not cfg.tie_embeddings:
             params["unembed"] = {"table": cast(dense_init(
                 k_out, (cfg.d_model, cfg.padded_vocab), device=dev))}
@@ -151,6 +164,14 @@ class DecoderLM:
         zeros = lambda: torch.zeros((cfg.d_model,), device=device)  # noqa
         layer: dict = {"pre_norm": {"scale": zeros()},
                        "pre_mlp_norm": {"scale": zeros()}}
+        if cfg.block_kind == "mamba2":
+            layer["ssm"] = m2.init_mamba2(k_attn, cfg, device=device)
+            del layer["pre_mlp_norm"]  # mamba2 block has no separate MLP
+            return layer
+        if cfg.block_kind == "rwkv6":
+            layer["rwkv"] = rk.init_rwkv6(k_attn, cfg, device=device)
+            layer["ffn"] = rk.init_rwkv6_ffn(k_mlp, cfg, device=device)
+            return layer
         if cfg.mla is not None:
             layer["attn"] = attn.init_mla(k_attn, cfg, device=device)
         else:
@@ -203,19 +224,26 @@ class DecoderLM:
         GQA rings ``k``, ``v`` (L, B, T, Hkv, hd) or MLA latents ``ckv``
         (L, B, T, kv_lora), ``k_rope`` (L, B, T, rope), with ``slot_pos``
         (L, T). With ``split_cache``: ``{"local": (G, g-1, ...) rings of
-        the window, "global": (G, ...) full caches}``."""
+        the window, "global": (G, ...) full caches}``. Mamba2: ``conv``
+        (L, B, d_conv-1, conv_dim), float32 ``ssm`` (L, B, nh, hd, ds);
+        RWKV6: float32 ``state`` (L, B, nh, hd, hd), ``x_att``, ``x_ffn``
+        (L, B, d); neither grows with ``seq_len``."""
         cfg = self.cfg
         dev = _device(device)
 
         def one(clen: int, lead: tuple) -> dict:
-            if cfg.mla is not None:
+            if cfg.block_kind == "mamba2":
+                c = m2.init_mamba2_cache(cfg, batch, device=dev)
+            elif cfg.block_kind == "rwkv6":
+                c = rk.init_rwkv6_cache(cfg, batch, device=dev)
+            elif cfg.mla is not None:
                 c = attn.init_mla_cache(cfg, batch, clen, device=dev)
             else:
                 c = attn.init_gqa_cache(cfg, batch, clen, device=dev)
-            return {k: v.expand(lead + tuple(v.shape)).clone()
-                    for k, v in c.items()}
+            return _expanded(c, lead)
 
-        if cfg.split_cache and cfg.sliding_window and cfg.global_every:
+        if (cfg.split_cache and cfg.block_kind == "attn"
+                and cfg.sliding_window and cfg.global_every):
             G, nloc = self._split_geometry()
             w = int(cfg.sliding_window)
             return {"local": one(min(seq_len, w), (G, nloc)),
@@ -243,6 +271,10 @@ class DecoderLM:
                     mrope_positions=None):
         """One block; cache may be None. Returns (x, new_cache, aux)."""
         cfg = self.cfg
+        if cfg.block_kind == "mamba2":
+            return self._mamba2_body(x, layer_p, cache)
+        if cfg.block_kind == "rwkv6":
+            return self._rwkv6_body(x, layer_p, cache)
         h = rms_norm(x, layer_p["pre_norm"]["scale"], cfg.norm_eps)
         if cfg.mla is not None:
             a_out, new_cache = attn.mla_forward(
@@ -263,9 +295,52 @@ class DecoderLM:
                                              dropless=dropless)
         else:
             m_out = mlp_forward(layer_p["mlp"], h, cfg)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            aux = self._zero(x)
         x = x + m_out
         return x, (new_cache if cache is not None else None), aux
+
+    def _mamba2_body(self, x, layer_p, cache):
+        cfg = self.cfg
+        h = rms_norm(x, layer_p["pre_norm"]["scale"], cfg.norm_eps)
+        if cache is None:
+            s_out, new_cache = m2.mamba2_scan(layer_p["ssm"], h, cfg=cfg)
+        elif h.shape[1] == 1:
+            s_out, new_cache = m2.mamba2_step(layer_p["ssm"], h, cache,
+                                              cfg=cfg)
+        else:  # prefill: scan, then keep the final state
+            s_out, new_cache = m2.mamba2_scan(layer_p["ssm"], h, cfg=cfg,
+                                              return_cache=True)
+        return x + s_out, new_cache, self._zero(x)
+
+    def _rwkv6_body(self, x, layer_p, cache):
+        """Time mix, then channel mix; with a cache, both carry their last
+        input token (``x_att``, ``x_ffn``) into the next call."""
+        cfg = self.cfg
+        h = rms_norm(x, layer_p["pre_norm"]["scale"], cfg.norm_eps)
+        if cache is None:
+            t_out, new_cache = rk.rwkv6_scan(layer_p["rwkv"], h, cfg=cfg)
+        elif h.shape[1] == 1:
+            t_out, tm_cache = rk.rwkv6_step(layer_p["rwkv"], h, cache,
+                                            cfg=cfg)
+            new_cache = dict(cache, **tm_cache)
+        else:
+            t_out, tm_cache = rk.rwkv6_scan(
+                layer_p["rwkv"], h, cfg=cfg, x_prev=cache["x_att"],
+                return_cache=True)
+            new_cache = dict(cache, **tm_cache)
+        x = x + t_out
+        h = rms_norm(x, layer_p["pre_mlp_norm"]["scale"], cfg.norm_eps)
+        if cache is None:
+            f_out = rk.rwkv6_ffn(layer_p["ffn"], h)
+        else:
+            f_out, _ = rk.rwkv6_ffn_step(layer_p["ffn"], h,
+                                         new_cache["x_ffn"])
+            new_cache["x_ffn"] = h[:, -1]
+        return x + f_out, new_cache, self._zero(x)
+
+    @staticmethod
+    def _zero(x) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.float32, device=x.device)
 
     def _run_stack(self, params, x, positions, mrope_positions, cache,
                    write_pos, *, remat: bool = False):

@@ -106,8 +106,9 @@ class BatchServer:
     # -- public -----------------------------------------------------------
     def serve(self, requests: Sequence[Request]) -> list[Completion]:
         """Greedy-decode a batch of same-bucket requests. Prompts are
-        left-padded to the longest; positions run from 0 over the pads, as
-        in the twin."""
+        left-padded to the longest; positions run from 0 over the pads,
+        and in the recurrent archs the pads enter the state, as in the
+        twin (ROADMAP Queue 3 item 9)."""
         t0 = time.perf_counter()
         B = len(requests)
         prompt_lens = [len(r.prompt) for r in requests]

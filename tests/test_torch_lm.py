@@ -1,20 +1,25 @@
-"""The attention-family LM serving path of the port (``repro_torch.models``,
-``configs``, ``serving.BatchServer`` / ``Scheduler``, ``launch.steps`` /
-``serve``) against the JAX package, on REDUCED configs of the seven ported
-archs (granite-3-2b: GQA, swiglu; granite-20b: MQA, gelu; mixtral-8x7b:
-MoE top-2 with sliding-window rings; llama4-scout: MoE top-1 with a shared
-expert; gemma3-12b: local:global windows, q/k norm, geglu, scaled tied
-embeddings; minicpm3-4b: MLA; qwen2-vl-2b: the embeddings frontend), on
-the CPU. The blocks' own cases (MoE dispatch, MLA, M-RoPE, the split
-cache, bf16 scores) are in ``tests/test_torch_lm_blocks.py``.
+"""The LM serving path of the port (``repro_torch.models``, ``configs``,
+``serving.BatchServer`` / ``Scheduler``, ``launch.steps`` / ``serve``)
+against the JAX package, on REDUCED configs, on the CPU. The registry,
+init and shape cases cover all ten archs of JAX's registry; the numerics
+and serving cases here cover the attention family (granite-3-2b: GQA,
+swiglu; granite-20b: MQA, gelu; mixtral-8x7b: MoE top-2 with
+sliding-window rings; llama4-scout: MoE top-1 with a shared expert;
+gemma3-12b: local:global windows, q/k norm, geglu, scaled tied
+embeddings; minicpm3-4b: MLA; qwen2-vl-2b: the embeddings frontend). The
+attention family's blocks (MoE dispatch, MLA, M-RoPE, the split cache,
+bf16 scores) are in ``tests/test_torch_lm_blocks.py``; the non-attention
+families and whisper (zamba2-1.2b, rwkv6-7b, whisper-large-v3) in
+``tests/test_torch_lm_recurrent.py``.
 
-* The registry: each ported arch's CONFIG and REDUCED equal JAX's field for
-  field (``dtype`` mapped); every JAX arch that is not ported is named in
-  ``NOT_PORTED`` below and raises, naming its ROADMAP item.
+* The registry: the port's archs are JAX's, in its order; each one's
+  CONFIG and REDUCED equal JAX's field for field (``dtype`` mapped), and
+  each resolves to a model of the twin's class and a harness.
 * ``init(prng.key(s))`` against ``init(jax.random.key(s))``: float32
   leaves to rtol 1e-6 (``prng.normal``), bfloat16 ones within one bf16
-  step; ``param_count`` equals JAX's, and the leaves' count but for the
-  norm scales the analytic count leaves out (q/k norm, MLA's latent norms).
+  step; ``param_count`` equals JAX's, and the leaves equal JAX's leaves
+  (for the attention family also the analytic count but for the norm
+  scales it leaves out: q/k norm, MLA's latent norms).
 * On JAX's params (``convert.lm_params``), float32: ``forward`` logits to
   rtol / atol 1e-5, ``prefill`` + ``decode_step`` against the
   teacher-forced logits at JAX's 2e-3 (MoE archs at ``capacity_factor =
@@ -57,21 +62,22 @@ from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch.steps import LMHarness, SkipCell  # noqa: E402
-from repro_torch.models import attention as tattention  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.serving import BatchServer, Request, Scheduler  # noqa: E402
 from repro_torch.tree import flatten_with_paths, tree_map  # noqa: E402
 
-ARCHS = ["granite-3-2b", "granite-20b", "mixtral-8x7b",
-         "llama4-scout-17b-a16e", "gemma3-12b", "minicpm3-4b", "qwen2-vl-2b"]
+# the attention family: its numerics and serving cases are here
+ATTN_ARCHS = ["granite-3-2b", "granite-20b", "mixtral-8x7b",
+              "llama4-scout-17b-a16e", "gemma3-12b", "minicpm3-4b",
+              "qwen2-vl-2b"]
+# every arch of the JAX registry: the registry, init and shape cases are
+# here; the numerics and serving cases of the non-attention families and
+# whisper are in tests/test_torch_lm_recurrent.py
+ARCHS = ATTN_ARCHS + ["whisper-large-v3", "zamba2-1.2b", "rwkv6-7b"]
 # the archs the token launcher serves (qwen2-vl-2b has the embeddings
 # frontend: JAX's launcher refuses it, and it is served through the
 # harness's steps)
-SERVED = [a for a in ARCHS if a != "qwen2-vl-2b"]
-# the JAX archs the port does not have yet, each waiting for ROADMAP Queue 1
-# item 12a-ii (the non-attention families and whisper); an arch may leave
-# this list only by entering the port's ARCHS
-NOT_PORTED = ["whisper-large-v3", "zamba2-1.2b", "rwkv6-7b"]
+SERVED = [a for a in ATTN_ARCHS if a != "qwen2-vl-2b"]
 F32_TOL = 1e-5        # forward logits, float32: rtol and atol
 DECODE_TOL = 2e-3     # prefill / decode vs teacher forcing (JAX's own)
 # bf16 logits, port vs JAX's jitted forward: |d| <= atol + rtol |jax|,
@@ -153,19 +159,29 @@ def test_config_equals_jax_field_for_field(arch, which):
 
 
 def test_registry_lists_every_jax_arch():
+    """The port's registry is JAX's, in its order."""
+    assert tconfigs.list_archs() == jconfigs.list_archs()
     assert sorted(tconfigs.list_archs()) == sorted(ARCHS)
-    assert sorted(jconfigs.list_archs()) == sorted(ARCHS + NOT_PORTED)
-    assert sorted(tconfigs.NOT_PORTED) == sorted(NOT_PORTED)
+    assert not hasattr(tconfigs, "NOT_PORTED")
     assert tconfigs.SHAPES == {k: tconfigs.Shape(**dataclasses.asdict(v))
                                for k, v in jconfigs.SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_arch_raises_with_its_item(arch):
-    with pytest.raises(NotImplementedError, match="item 12a-ii"):
-        tconfigs.get_arch(arch)
-    with pytest.raises(NotImplementedError, match="item 12a-ii"):
-        LMHarness(arch)
+@pytest.mark.parametrize("arch", jconfigs.list_archs())
+def test_every_jax_arch_resolves_in_the_port(arch):
+    """Each arch of JAX's registry resolves in the port: its module, a
+    model of the twin's class built from CONFIG and REDUCED, and a
+    harness."""
+    jmod, tmod = jconfigs.get_arch(arch), tconfigs.get_arch(arch)
+    assert tmod.__name__ == jmod.__name__.replace("repro.", "repro_torch.")
+    for which in ("CONFIG", "REDUCED"):
+        jm = jmod.build(getattr(jmod, which))
+        tm = tmod.build(getattr(tmod, which))
+        assert type(tm).__name__ == type(jm).__name__
+        assert tm.cfg.name == jm.cfg.name == arch
+    h = LMHarness(arch)
+    assert h.cfg is tmod.CONFIG and type(h.model).__name__ == type(
+        JHarness(arch).model).__name__
 
 
 def test_unknown_arch_is_a_key_error():
@@ -174,11 +190,13 @@ def test_unknown_arch_is_a_key_error():
 
 
 def test_unported_blocks_and_steps_raise():
+    """Only rematerialisation and the train step (item 12b), the shardings
+    and the two sharding levers (item 12c) raise; an unknown block kind is
+    a ValueError."""
     base = tconfigs.get_arch("granite-3-2b").REDUCED
     build = tconfigs.get_arch("granite-3-2b").build
-    for kind in ("mamba2", "rwkv6"):
-        with pytest.raises(NotImplementedError, match="item 12a-ii"):
-            build(dataclasses.replace(base, block_kind=kind))
+    with pytest.raises(ValueError):
+        build(dataclasses.replace(base, block_kind="no-such-block"))
     for lever in ("seq_parallel_attn", "moe_ep"):
         with pytest.raises(NotImplementedError, match="item 12c"):
             build(dataclasses.replace(base, **{lever: True}))
@@ -187,12 +205,13 @@ def test_unported_blocks_and_steps_raise():
     with pytest.raises(NotImplementedError, match="item 12b"):
         model.forward(params, {"tokens": np.ones((1, 4), np.int32)},
                       remat=True)
-    x = torch.zeros((1, 4, base.d_model))
-    with pytest.raises(NotImplementedError, match="item 12a-ii"):
-        tattention.gqa_forward(
-            tree_map(lambda t: t[0], params["layers"])["attn"], x,
-            cfg=model.cfg, positions=torch.zeros((1, 4), dtype=torch.int32),
-            kv_x=x)
+    for arch in ("zamba2-1.2b", "whisper-large-v3"):
+        mod = tconfigs.get_arch(arch)
+        m = mod.build(dataclasses.replace(mod.REDUCED, dtype=torch.float32))
+        batch = {"tokens": np.ones((1, 4), np.int32),
+                 "enc_embeds": np.zeros((1, 4, 64), np.float32)}
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            m.forward(m.init(prng.key(0), device="cpu"), batch, remat=True)
     h = LMHarness("granite-3-2b", cfg=base)
     with pytest.raises(NotImplementedError, match="item 12b"):
         h.make_train_step(SHAPES["train_4k"])
@@ -237,16 +256,24 @@ def uncounted_norms(cfg) -> int:
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("which", ["CONFIG", "REDUCED"])
 def test_param_count_equals_the_leaves(arch, which):
+    """The port's leaves count JAX's for every arch. For the attention
+    family they also count ``param_count()`` plus the norm scales it
+    leaves out; JAX's analytic count does not describe zamba2's shared
+    block and LoRA, rwkv6's mixes and LoRA decay, or whisper's encoder and
+    position table (zamba2-1.2b: 1106350208 leaves, 2950167296 counted;
+    rwkv6-7b 7534415872 / 8347717632; whisper-large-v3 1577530880 /
+    762005760), and ``param_count`` keeps JAX's formula."""
     cfg = getattr(tconfigs.get_arch(arch), which)
     shapes = LMHarness(arch, cfg=cfg).param_shapes()
     leaves = [t for _, t in flatten_with_paths(shapes)]
     assert all(t.device.type == "meta" and t.dtype == cfg.dtype
                for t in leaves)
     n = sum(t.numel() for t in leaves)
-    assert n == cfg.param_count() + uncounted_norms(cfg)
     jleaves = jax.tree.leaves(JHarness(
         arch, cfg=getattr(jconfigs.get_arch(arch), which)).param_shapes())
     assert n == sum(int(np.prod(s.shape)) for s in jleaves)
+    if arch in ATTN_ARCHS:
+        assert n == cfg.param_count() + uncounted_norms(cfg)
 
 
 def test_chunked_normal_equals_jax(monkeypatch):
@@ -278,7 +305,7 @@ def test_lm_params_keeps_dtypes_and_values():
 # --------------------------------------------------------------------------
 # float32 numerics
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_forward_and_loss_match_jax_f32(arch):
     jmodel, tmodel = _cfgs(arch, jnp.float32)
     jp, tp = _jax_params(jmodel, 1)
@@ -305,7 +332,7 @@ def test_forward_and_loss_match_jax_f32(arch):
                                rtol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_prefill_decode_matches_forward_f32(arch):
     """``tests/test_models.py::test_prefill_decode_matches_forward`` on the
     port, with JAX's teacher-forced logits as the reference too (MoE archs
@@ -341,7 +368,7 @@ def test_prefill_decode_matches_forward_f32(arch):
 # --------------------------------------------------------------------------
 # bfloat16 numerics and serving
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_layer_body_bf16_equals_jax_eager(arch):
     """One bf16 layer, op by op: the port's body gives JAX's eager body's
     bytes (the activations are XLA's op-by-op bf16 formulas) but for a
@@ -395,7 +422,7 @@ def _tol_ratio(got, want, rtol, atol) -> float:
     return float((np.abs(got - want) / (atol + rtol * np.abs(want))).max())
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_forward_bf16_within_tolerance(arch):
     """The bf16 stack: within EAGER_RTOL / EAGER_ATOL of JAX's op-by-op
     stack (EAGER_SAME_MIN of it byte-equal), and within BF16_TOL of JAX's
@@ -574,7 +601,7 @@ def test_harness_shapes_match_jax(arch):
         jh.token_shapes(jconfigs.SHAPES["decode_32k"])["tokens"].shape)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_harness_steps_serve_greedy(arch):
     """``make_prefill_step`` / ``make_decode_step`` (float32) against the
     model's own forward: the greedy tokens of teacher forcing (MoE archs
