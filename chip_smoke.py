@@ -165,7 +165,24 @@ in phases that each exit non-zero on failure:
    In float32 each arch cut to 12 (zamba2: two shared-block
    invocations), 4 (rwkv6) or 4 + 4 (whisper, its 64-row table) layers:
    prefill + decode against teacher forcing (2e-3) and card against host
-   (1e-3).
+   (1e-3);
+14. trains LMs on the card: granite-3-2b whole (40 layers, bf16) through
+   ``LMHarness(micro_rows=2).make_train_step`` on a 1 x 1 mesh of the
+   card, 4 steps of B 8 x S 512 (4 strided microbatches of 2 x 512,
+   remat, float32 accumulation, AdamW) on ``data/lm`` batches, printing
+   each step's loss, grad norm, wall and CUDA-event ms, the memory peak
+   and the param count (== the JAX package's leaves), and a fifth step's
+   device-busy ms from ``torch.profiler``; the loss must fall (the first
+   batch's after the steps below its first). A float32
+   2-layer cut of full width, one step card against host (loss rel 1e-5,
+   grad norm 1e-4, Adam's m within ``grads_close``). One mixtral-8x7b
+   MoE layer at full width (float32) through ``moe_forward_ep`` on a
+   data 4 x model 2 mesh of the card: dropless == the dense dispatch
+   (rtol 2e-4, atol 2e-5), and at capacity factor 0.5 the same dropped
+   pairs as on the host, outputs within 1e-5. Then ``python -m
+   repro_torch.launch.train`` on the card stopped by ``--fail-at-step
+   5`` and run again: the resumed params == an uninterrupted run's
+   (atol 1e-5).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -3448,6 +3465,302 @@ def phase_lm_zoo_recurrent(np, torch, card, seed) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 14: LM training
+# --------------------------------------------------------------------------
+TRAIN_LM_SHAPE = (512, 8)   # seq, global batch: 4 microbatches of 2 x 512
+TRAIN_LM_MICRO_ROWS = 2
+TRAIN_LM_STEPS = 4
+TRAIN_CUT = (2, 2, 64)      # float32 cut: layers, batch, seq
+EP_ARCH, EP_MESH = "mixtral-8x7b", (4, 2)
+EP_X = (8, 32)              # batch, seq of the MoE layer's input
+EP_CF = 0.5                 # capacity factor of the capacity path: drops
+EP_TOL = (2e-4, 2e-5)       # dropless EP vs dense: tests/test_perf_variants
+EP_HOST_TOL = 1e-5          # capacity path, card vs host: rtol and atol
+RESUME_TOL = 1e-5           # tests/test_system.py's resume atol
+
+
+def lm_train_whole(np, torch, card) -> dict:
+    """granite-3-2b whole (bf16 CONFIG) through ``LMHarness(...,
+    micro_rows=2).make_train_step`` on a 1 x 1 mesh of the card, 4 steps
+    on ``data/lm`` batches: per step loss, grad norm, wall ms and ms
+    between CUDA events; the memory peak; the device's busy ms in a fifth
+    step, under ``torch.profiler``. The loss must fall: the first batch's
+    loss after the steps below the first step's."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.core import prng
+    from repro_torch.data import lm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import LMHarness
+    from repro_torch.tree import leaves
+
+    cfg = configs.get_arch(LM_ARCH).CONFIG
+    n_params, nbytes = lm_size(LM_ARCH, cfg)
+    h = LMHarness(LM_ARCH, cfg=cfg, micro_rows=TRAIN_LM_MICRO_ROWS)
+    S, B = TRAIN_LM_SHAPE
+    shape = Shape("train_card", S, B, "train")
+    mesh = make_host_mesh(devices=["cuda"])
+    n_micro = h.n_microbatches(shape, mesh)
+    check(n_micro == B // TRAIN_LM_MICRO_ROWS,
+          f"n_micro {n_micro} != {B // TRAIN_LM_MICRO_ROWS}")
+    free_card(torch)
+    held = torch.cuda.memory_allocated()  # left by the earlier phases
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = h.model.init(prng.key(0), device="cuda")
+    opt_state = h.opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = h.make_train_step(shape, mesh)
+    stream = lm.TokenStream(cfg.vocab_size, seed=0)
+    steps, batches = [], []
+    for i in range(TRAIN_LM_STEPS):
+        toks = torch.from_numpy(stream.sample(B, S, i).astype(
+            np.int32)).cuda()
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        batches.append(batch)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        params, opt_state, m = step(params, opt_state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        steps.append({"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "wall_ms": wall, "event_ms": start.elapsed_time(end)})
+    peak = torch.cuda.max_memory_allocated()
+    # one more step under torch.profiler: the device's busy time in it
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.from_numpy(stream.sample(B, S, TRAIN_LM_STEPS).astype(
+        np.int32)).cuda()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, opt_state, _ = step(params, opt_state, {
+            "tokens": toks[:, :-1], "targets": toks[:, 1:]})
+        torch.cuda.synchronize()
+    busy_ms = sum(getattr(evt, "device_time_total", 0)
+                  for evt in prof.key_averages()) / 1e3
+    check(all(p.device.type == "cuda" and p.dtype == torch.bfloat16
+              for p in leaves(params)), "the train step left the card")
+    check(int(opt_state["step"]) == TRAIN_LM_STEPS + 1,
+          "optimizer step count")
+    check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+              for s in steps), f"non-finite loss or grad norm: {steps}")
+    del opt_state, step
+    with torch.no_grad():
+        after = float(h.model.loss(params, batches[0])[0])
+    check(after < steps[0]["loss"], f"the loss did not fall: the first "
+          f"batch's {steps[0]['loss']:.4f} before the steps, {after:.4f} "
+          f"after")
+    del params
+    free_card(torch)
+    return {"params": n_params, "param_bytes": nbytes, "init_s": init_s,
+            "n_micro": n_micro, "steps": steps, "peak_bytes": peak,
+            "first_batch_after": after, "busy_ms": busy_ms, "held": held}
+
+
+def train_cut_step(torch, h, shape, device, params, batch):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(devices=[device])
+    return h.make_train_step(shape, mesh)(params, h.opt.init(params), batch)
+
+
+def lm_train_f32_cut(np, torch) -> dict:
+    """granite-3-2b at full width cut to 2 layers, float32, one train step
+    (B 2 x S 64, two microbatches) on the card and on the host from the
+    same params: loss, grad norm and Adam's first moment."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.core import prng
+    from repro_torch.data import lm
+    from repro_torch.launch.steps import LMHarness
+    from repro_torch.tree import leaves, tree_map
+
+    layers, B, S = TRAIN_CUT
+    cfg = dataclasses.replace(configs.get_arch(LM_ARCH).CONFIG,
+                              n_layers=layers, dtype=torch.float32)
+    h = LMHarness(LM_ARCH, cfg=cfg)
+    shape = Shape("train_cut", S, B, "train")
+    p_card = h.model.init(prng.key(1), device="cuda")
+    p_host = tree_map(lambda t: t.cpu(), p_card)
+    toks = torch.from_numpy(lm.TokenStream(cfg.vocab_size, seed=1).sample(
+        B, S, 0).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    _, o_card, m_card = train_cut_step(
+        torch, h, shape, "cuda", p_card,
+        tree_map(lambda t: t.cuda(), batch))
+    _, o_host, m_host = train_cut_step(torch, h, shape, "cpu", p_host, batch)
+    loss_rel = abs(float(m_card["loss"]) / float(m_host["loss"]) - 1)
+    norm_rel = abs(float(m_card["grad_norm"]) / float(m_host["grad_norm"])
+                   - 1)
+    check(loss_rel <= LOSS_RTOL, f"f32 cut train step: loss card vs host "
+          f"{loss_rel:.3e}")
+    check(norm_rel <= GRAD_RTOL, f"f32 cut train step: grad norm card vs "
+          f"host {norm_rel:.3e}")
+    m_worst = grads_close(np, leaves(o_card["m"]), leaves(o_host["m"]),
+                          "f32 cut train step: Adam's m card vs host")
+    del p_card, p_host, o_card, o_host
+    free_card(torch)
+    return {"layers": layers, "loss": float(m_card["loss"]),
+            "loss_rel": loss_rel, "norm_rel": norm_rel, "m_worst": m_worst}
+
+
+def lm_train_ep(np, torch) -> dict:
+    """One mixtral-8x7b MoE layer at full width (float32) through
+    ``moe_forward_ep`` on a data 4 x model 2 mesh of the card: dropless
+    against the dense dispatch, and on the capacity path (capacity factor
+    EP_CF) the same dropped pairs and outputs as on the host."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.launch.mesh import make_host_mesh, use_mesh
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(configs.get_arch(EP_ARCH).CONFIG,
+                              dtype=torch.float32)
+    free_card(torch)
+    p = moe.init_moe(prng.key(2), cfg, device="cuda")
+    B, S = EP_X
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 0.5, (B, S, cfg.d_model)).astype(np.float32)).cuda()
+    mesh = make_host_mesh(data=EP_MESH[0], model=EP_MESH[1],
+                          devices=["cuda"])
+    with torch.inference_mode():
+        dense, _ = moe.moe_forward(p, x, cfg, dropless=True)
+        with use_mesh(mesh):
+            ep, _ = moe.moe_forward_ep(p, x, cfg, dropless=True)
+    rtol, atol = EP_TOL
+    ep_worst = float(((ep - dense).abs() / (atol + rtol * dense.abs()))
+                     .max())
+    check(ep_worst <= 1.0, f"dropless moe_forward_ep vs dense: "
+          f"{ep_worst:.3f} x the tolerance")
+
+    # the capacity path, card and host, with the dropped pairs recorded
+    ccfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=EP_CF))
+    real, kept = moe.dispatch, []
+
+    def recording(gate_idx, E, C):
+        out = real(gate_idx, E, C)
+        kept.append(out[3].cpu())
+        return out
+
+    moe.dispatch = recording
+    try:
+        with torch.inference_mode(), use_mesh(mesh):
+            y_card, aux_card = moe.moe_forward_ep(p, x, ccfg)
+        card_keep, kept[:] = list(kept), []
+        p_host = tree_map(lambda t: t.cpu(), p)
+        host_mesh = make_host_mesh(data=EP_MESH[0], model=EP_MESH[1],
+                                   devices=["cpu"])
+        with torch.inference_mode(), use_mesh(host_mesh):
+            y_host, aux_host = moe.moe_forward_ep(p_host, x.cpu(), ccfg)
+        host_keep = list(kept)
+    finally:
+        moe.dispatch = real
+    check(len(card_keep) == len(host_keep) == EP_MESH[0]
+          and all(torch.equal(a, b) for a, b in zip(card_keep, host_keep)),
+          "moe_forward_ep: card and host keep other (token, expert) pairs")
+    dropped = int(sum((~k).sum() for k in card_keep))
+    pairs = int(sum(k.numel() for k in card_keep))
+    check(dropped > 0, "the capacity path dropped no pair")
+    host_worst = worst_ratio(y_card, y_host, EP_HOST_TOL)
+    check(host_worst <= 1.0, f"moe_forward_ep capacity path card vs host "
+          f"{host_worst:.3f} x the tolerance")
+    check(abs(float(aux_card) - float(aux_host)) <= EP_HOST_TOL * abs(
+        float(aux_host)), "moe_forward_ep aux card vs host")
+    del p, p_host, x, dense, ep, y_card, y_host
+    free_card(torch)
+    return {"ep_worst": ep_worst, "host_worst": host_worst,
+            "dropped": dropped, "pairs": pairs}
+
+
+def lm_train_launcher(np, torch) -> dict:
+    """``python -m repro_torch.launch.train`` on the card (its default
+    device): 8 steps stopped by ``--fail-at-step 5``, run again from the
+    step-3 checkpoint; the final params equal an uninterrupted run's."""
+    import os
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves
+
+    args = ["--arch", LM_ARCH, "--steps", "8", "--batch", "4", "--seq",
+            "16", "--checkpoint-every", "3"]
+    ref = train.main(args)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *args,
+               "--checkpoint-dir", d]
+        first = subprocess.run(cmd + ["--fail-at-step", "5"], env=env,
+                               capture_output=True, text=True, timeout=300)
+        check(first.returncode != 0 and "simulated preemption at step 5"
+              in first.stderr, f"--fail-at-step 5 did not stop the run: "
+              f"rc {first.returncode}\n{first.stderr[-2000:]}")
+        again = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                               timeout=300)
+        check(again.returncode == 0, f"the resumed run failed: "
+              f"{again.stderr[-2000:]}")
+        check("[loop] resumed from checkpoint step 3" in again.stdout,
+              "the second run did not resume from step 3")
+        final, _ = ckpt.load(d, 8, like=ref)
+    worst = max(float((a.float().cpu() - b.float()).abs().max())
+                for a, b in zip(leaves(ref["params"]),
+                                leaves(final["params"])))
+    check(worst <= RESUME_TOL, f"resumed launcher run vs uninterrupted: "
+          f"{worst}")
+    check(all(p.device.type == "cuda" for p in leaves(ref["params"])),
+          "the launcher did not train on the card")
+    return {"resume_max_abs": worst}
+
+
+def phase_lm_train(np, torch, card) -> dict:
+    """granite-3-2b trained whole on the card; the float32 cut card vs
+    host; expert parallelism at mixtral's width; the launcher's restart."""
+    t0 = time.perf_counter()
+    out = {"whole": lm_train_whole(np, torch, card),
+           "f32": lm_train_f32_cut(np, torch),
+           "ep": lm_train_ep(np, torch),
+           "launcher": lm_train_launcher(np, torch)}
+    out["phase_s"] = time.perf_counter() - t0
+    w = out["whole"]
+    for i, s in enumerate(w["steps"]):
+        log(f"train {LM_ARCH} (whole, {w['params']} params, bf16) step {i}: "
+            f"loss {s['loss']:.4f}, grad norm {s['grad_norm']:.4f}, wall "
+            f"{s['wall_ms']:.1f} ms, {s['event_ms']:.1f} ms between CUDA "
+            f"events ({card})")
+    log(f"train {LM_ARCH}: {w['n_micro']} microbatches of "
+        f"{TRAIN_LM_MICRO_ROWS} x {TRAIN_LM_SHAPE[0]} a step, init "
+        f"{w['init_s']:.2f} s, peak {w['peak_bytes'] / 2**30:.2f} GiB "
+        f"({w['held'] / 2**30:.2f} held before), "
+        f"device busy {w['busy_ms']:.1f} ms in a profiled step; the first "
+        f"batch's loss {w['steps'][0]['loss']:.4f} -> "
+        f"{w['first_batch_after']:.4f} after {TRAIN_LM_STEPS + 1} steps "
+        f"({card})")
+    f = out["f32"]
+    log(f"train {LM_ARCH} float32 {f['layers']}-layer cut, card vs host: "
+        f"loss rel {f['loss_rel']:.3e}, grad norm rel {f['norm_rel']:.3e}, "
+        f"m {f['m_worst']:.4f} x tol")
+    e = out["ep"]
+    log(f"moe_forward_ep {EP_ARCH} layer on {EP_MESH[0]} x {EP_MESH[1]}: "
+        f"dropless vs dense {e['ep_worst']:.4f} x tol; capacity "
+        f"{EP_CF}: {e['dropped']} of {e['pairs']} pairs dropped, the same "
+        f"on the host, outputs {e['host_worst']:.4f} x tol")
+    log(f"launch.train restart: resumed params vs uninterrupted max |d| "
+        f"{out['launcher']['resume_max_abs']}; phase 14 "
+        f"{out['phase_s']:.1f} s ({card})")
+    return out
+
+
+# --------------------------------------------------------------------------
 def main() -> None:
     import argparse
 
@@ -3562,6 +3875,9 @@ def main() -> None:
     log("phase 13: the non-attention LM families and whisper at full width "
         "on the card")
     phase_lm_zoo_recurrent(np, torch, card, args.seed)
+
+    log("phase 14: LM training on the card")
+    phase_lm_train(np, torch, card)
     check_no_jax()
 
     print(card, flush=True)  # name, power limit as nvidia-smi gives them

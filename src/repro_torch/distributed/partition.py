@@ -1,24 +1,44 @@
 """Logical-axis -> mesh partitioning with divisibility fallbacks.
 
-Twin of :mod:`repro.distributed.partition`, the part the spike mesh reads:
-:class:`PartitionRules` and :func:`spec_for`. A rule maps a logical axis
+Twin of :mod:`repro.distributed.partition`. A rule maps a logical axis
 name to a mesh axis (or a tuple of mesh axes); every rule is subject to a
 divisibility check against the actual dim, and on failure the dim
 replicates. :func:`spec_for` returns the tuple of entries JAX's
 ``PartitionSpec`` would hold, trailing ``None`` entries dropped.
 
 A mesh here is anything with a ``shape`` mapping of axis name -> size
-(:class:`repro_torch.distributed.spike_mesh.SpikeMesh`).
+(and ``axis_names``): :class:`repro_torch.distributed.spike_mesh.
+SpikeMesh` for the SNN, :class:`repro_torch.launch.mesh.LMMesh` for the
+LM. The LM half mirrors the twin's policy:
+
+  vocab  -> model          embed  -> data (FSDP / ZeRO)
+  heads, kv, ffn -> model  expert -> None, or model (expert parallel)
+  batch  -> (pod, data)    cache_seq -> model
+
+:func:`params_partition`, :func:`opt_partition`, :func:`batch_partition`
+and :func:`cache_partition` return trees of :class:`Sharding` (a mesh
+and a spec tuple), the twin's ``NamedSharding``s. The activation
+constraints (:func:`activation_sharding`, :func:`constrain_batch`,
+:func:`constrain_seq`) read the context as the twin's do and return
+their input unchanged: the LM runs its logical mesh on one device
+(:func:`repro_torch.launch.mesh.single_device`), where a layout
+constraint has nothing to move.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Any
 
 import numpy as np
 
-__all__ = ["PartitionRules", "spec_for"]
+from repro_torch.tree import flatten_with_paths, tree_map, unflatten
+
+__all__ = ["PartitionRules", "Sharding", "activation_sharding",
+           "batch_partition", "cache_partition", "constrain_batch",
+           "constrain_seq", "opt_partition", "params_partition", "spec_for"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +47,43 @@ class PartitionRules:
 
     rules: dict[str, Any] = dataclasses.field(default_factory=dict)
     batch_axes: tuple[str, ...] = ("data",)
+
+    @classmethod
+    def default(cls, mesh, *, expert_parallel: bool = False,
+                attn_tp: bool = True) -> "PartitionRules":
+        """The LM policy on ``mesh``. ``attn_tp=False`` replicates the
+        attention projections; ``expert_parallel`` shards the expert dim
+        over ``model`` instead of the ffn dim."""
+        multi_pod = "pod" in mesh.axis_names
+        rules = {
+            "vocab": "model",
+            "embed": "data",
+            "heads": "model" if attn_tp else None,
+            "kv": "model" if attn_tp else None,
+            "ffn": "model" if not expert_parallel else None,
+            "expert": "model" if expert_parallel else None,
+            "layers": None,
+            "cache_seq": "model",
+            "cache_batch": ("pod", "data") if multi_pod else ("data",),
+        }
+        return cls(rules=rules,
+                   batch_axes=("pod", "data") if multi_pod else ("data",))
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """The twin's ``NamedSharding``: a mesh and the entries of its
+    ``PartitionSpec`` (a tuple, trailing ``None`` entries dropped), which
+    ``PartitionSpec`` writes canonically: a tuple of one mesh axis as the
+    axis's name, an empty one as ``None``."""
+
+    mesh: Any
+    spec: tuple = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "spec", tuple(
+            (e[0] if len(e) == 1 else (e or None))
+            if isinstance(e, tuple) else e for e in self.spec))
 
 
 def _axis_size(mesh, mesh_axes) -> int:
@@ -63,3 +120,138 @@ def spec_for(logical_axes, shape, mesh, rules: PartitionRules) -> tuple:
     while out and out[-1] is None:
         out.pop()
     return tuple(out)
+
+
+def _pstr(entry) -> str:
+    """A path entry as the twin's ``_pstr`` writes it (a dict key, or a
+    sequence index)."""
+    return str(entry)
+
+
+def params_partition(param_shapes, mesh, rules: PartitionRules):
+    """A tree of tensors (``meta`` ones do) -> a tree of :class:`Sharding`
+    by each leaf's logical axes (:func:`repro_torch.models.common.
+    axes_of` on its joined path)."""
+    from repro_torch.models.common import axes_of
+
+    def one(path, leaf):
+        axes = axes_of("/".join(_pstr(p) for p in path), leaf)
+        return Sharding(mesh, spec_for(axes, leaf.shape, mesh, rules))
+
+    return unflatten(param_shapes, [one(p, leaf) for p, leaf in
+                                    flatten_with_paths(param_shapes)])
+
+
+def opt_partition(opt_shapes, params_shard, mesh):
+    """Adam-style state ``{'step', 'm': <params>, 'v': <params>}``: the
+    moments shard exactly like the params, the rest replicates."""
+    replicated = Sharding(mesh, ())
+    out = {}
+    for key, sub in opt_shapes.items():
+        if key in ("m", "v", "mu") and sub is not None:
+            out[key] = params_shard
+        else:
+            out[key] = tree_map(lambda _: replicated, sub)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Activation-sharding context: the twin's models constrain the batch (or
+# sequence) dim where GSPMD propagation drops it, inside the context the
+# steps set. Here the steps set the same context, and the constraints
+# return their input: one device holds every shard.
+# --------------------------------------------------------------------------
+
+_ACT_CTX: "contextvars.ContextVar[tuple | None]" = contextvars.ContextVar(
+    "repro_torch_activation_sharding", default=None)
+
+
+@contextlib.contextmanager
+def activation_sharding(batch_axes: tuple[str, ...], batch_size: int,
+                        mesh):
+    size = _axis_size(mesh, tuple(batch_axes))
+    tok = _ACT_CTX.set((tuple(batch_axes), size, batch_size))
+    try:
+        yield
+    finally:
+        _ACT_CTX.reset(tok)
+
+
+def constrain_batch(x, batch_axis: int = 0):
+    """The twin's batch-dim constraint: ``x`` itself."""
+    del batch_axis
+    return x
+
+
+def constrain_seq(x, seq_axis: int = 1, batch_axis: int | None = 0,
+                  mesh_axis: str = "model"):
+    """The twin's context-parallel constraint (the sequence dim over
+    ``model``): ``x`` itself."""
+    del seq_axis, batch_axis, mesh_axis
+    return x
+
+
+# --------------------------------------------------------------------------
+# Batch / cache shardings (name-pattern based)
+# --------------------------------------------------------------------------
+
+_BATCH_AXES_BY_KEY: dict[str, tuple[str | None, ...]] = {
+    # leading axes per rank; "B" = batch; the sequence dim replicates
+    "tokens": ("B", None),
+    "targets": ("B", None),
+    "embeds": ("B", None, None),
+    "enc_embeds": ("B", None, None),
+    "mrope_positions": (None, "B", None),
+    "positions": ("B", None),
+}
+
+
+def batch_partition(batch_shapes, mesh, rules: PartitionRules):
+    """Step inputs by leaf name: the batch dim over the batch axes where
+    it divides their size, all else replicated."""
+    size = _axis_size(mesh, rules.batch_axes)
+
+    def one(path, leaf):
+        key = _pstr(path[-1]) if path else ""
+        axes = _BATCH_AXES_BY_KEY.get(key, (None,) * leaf.ndim)
+        spec = [tuple(rules.batch_axes)
+                if ax == "B" and dim % size == 0 and size > 1 else None
+                for ax, dim in zip(axes, leaf.shape)]
+        while spec and spec[-1] is None:
+            spec.pop()
+        return Sharding(mesh, tuple(spec))
+
+    return unflatten(batch_shapes, [one(p, leaf) for p, leaf in
+                                    flatten_with_paths(batch_shapes)])
+
+
+_CACHE_AXES_BY_KEY: dict[str, tuple[str | None, ...]] = {
+    # per-layer-stacked cache leaves (leading "layers" dim)
+    "k": ("layers", "cache_batch", "cache_seq", "kv", None),
+    "v": ("layers", "cache_batch", "cache_seq", "kv", None),
+    "slot_pos": ("layers", "cache_seq"),
+    "ckv": ("layers", "cache_batch", "cache_seq", None),
+    "k_rope": ("layers", "cache_batch", "cache_seq", None),
+    "ssm": ("layers", "cache_batch", "ffn", None, None),
+    "conv": ("layers", "cache_batch", None, "ffn"),
+    "state": ("layers", "cache_batch", "heads", None, None),
+    "x_att": ("layers", "cache_batch", "embed"),
+    "x_ffn": ("layers", "cache_batch", "embed"),
+}
+
+
+def cache_partition(cache_shapes, mesh, rules: PartitionRules):
+    """Shardings for (stacked) decode caches by leaf name; the split
+    cache's group dims (G[, nloc]) lead and replicate."""
+
+    def one(path, leaf):
+        key = _pstr(path[-1])
+        axes = _CACHE_AXES_BY_KEY.get(key, ("layers",) + (None,) *
+                                      (leaf.ndim - 1))
+        if leaf.ndim > len(axes):
+            axes = (None,) * (leaf.ndim - len(axes)) + tuple(axes)
+        axes = axes[-leaf.ndim:] if leaf.ndim < len(axes) else axes
+        return Sharding(mesh, spec_for(axes, leaf.shape, mesh, rules))
+
+    return unflatten(cache_shapes, [one(p, leaf) for p, leaf in
+                                    flatten_with_paths(cache_shapes)])

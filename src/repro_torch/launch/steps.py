@@ -1,6 +1,6 @@
-"""LMHarness: per-(arch x shape) serving step functions and their shapes.
+"""LMHarness: per-(arch x shape) step functions, shapes and shardings.
 
-Twin of the serving half of :mod:`repro.launch.steps`:
+Twin of :mod:`repro.launch.steps`:
 
   * ``param_shapes()``       — the params on the ``meta`` device (shapes
     and dtypes, nothing drawn or allocated), where the twin uses
@@ -12,13 +12,23 @@ Twin of the serving half of :mod:`repro.launch.steps`:
     sequence) and the caches (GQA rings, MLA latents, the split layout,
     recurrent states, whisper's self and cross caches), as the twin's
     ``ShapeDtypeStruct``s do;
+  * ``make_train_step``   — microbatched gradient accumulation + AdamW;
   * ``make_prefill_step`` — build + fill KV caches;
   * ``make_decode_step``  — one greedy token against the cache (with
-    M-RoPE ids of the position, as the twin gives them).
+    M-RoPE ids of the position, as the twin gives them);
+  * ``shardings``         — the partitioner's in / out shardings of a
+    step (with the ``expert_parallel`` / ``attn_tp`` levers).
 
-The train step (microbatched accumulation + AdamW, with the harness's
-optimizer and microbatch fields) waits for ROADMAP Queue 1 item 12b and
-the shardings (with the EP / TP levers) for item 12c: both raise.
+Microbatching policy, the twin's: the global batch splits so each
+data-shard row takes ``micro_rows`` sequences a microbatch (``n_micro =
+global_batch / (batch shards x micro_rows)``), microbatches strided
+across the shards (:func:`_strided_split`); the gradients of ``loss(...,
+remat=True)`` accumulate in float32, are averaged, clipped to global
+norm 1 and applied by AdamW. The mesh decides the numbers, not only the
+layout: ``n_micro``, the split and, with ``moe_ep``, each data row's
+local MoE capacity follow it. A step runs a logical mesh on one device
+(:func:`repro_torch.launch.mesh.single_device`); a mesh over several
+cards raises, ROADMAP Queue 1 item 12e.
 """
 
 from __future__ import annotations
@@ -31,6 +41,10 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.shapes import Shape
 from repro_torch.core import prng
+from repro_torch.distributed import partition as part
+from repro_torch.launch.mesh import single_device, use_mesh
+from repro_torch.training import optimizers
+from repro_torch.tree import leaves, unflatten
 
 __all__ = ["LMHarness", "SkipCell"]
 
@@ -45,18 +59,30 @@ class SkipCell(Exception):
 class LMHarness:
     arch_id: str
     cfg: Any = None
+    lr: float = 1e-4
+    expert_parallel: bool = False   # MoE lever: experts over model, not ffn
+    attn_tp: bool = True            # False replicates the attention weights
+    micro_rows: int = 1             # sequences per data shard a microbatch
 
     def __post_init__(self):
         mod = configs.get_arch(self.arch_id)
         self.cfg = self.cfg or mod.CONFIG
         self.model = mod.build(self.cfg)
         self.is_whisper = self.arch_id == "whisper-large-v3"
+        self.opt = optimizers.adamw(self.lr, weight_decay=0.01)
 
     # ------------------------------------------------------------------
     # shapes (no allocation anywhere)
     # ------------------------------------------------------------------
     def param_shapes(self) -> dict:
         return self.model.init(prng.key(0), device=_META)
+
+    def opt_shapes(self) -> dict:
+        return self.opt.init(self.param_shapes_zeros())
+
+    def param_shapes_zeros(self) -> dict:
+        # opt.init reads only shapes and dtypes: the meta params do
+        return self.param_shapes()
 
     def check_cell(self, shape: Shape) -> None:
         if shape.name == "long_500k" and not self.cfg.subquadratic:
@@ -108,20 +134,80 @@ class LMHarness:
     # ------------------------------------------------------------------
     # steps
     # ------------------------------------------------------------------
-    def make_train_step(self, shape: Shape, mesh=None):
-        raise NotImplementedError(
-            "the LM train step is not ported yet: ROADMAP Queue 1 item 12b "
-            "(LM training)")
+    def n_microbatches(self, shape: Shape, mesh) -> int:
+        rules = self.rules(mesh)
+        shard = part._axis_size(mesh, tuple(rules.batch_axes))
+        if shape.global_batch % shard != 0:
+            return 1
+        n = max(1, shape.global_batch // (shard * self.micro_rows))
+        while shape.global_batch % (shard * n) != 0 and n > 1:
+            n -= 1
+        return max(1, n)
 
-    def make_prefill_step(self, shape: Shape, *, device="cuda"):
+    def make_train_step(self, shape: Shape, mesh):
+        """``train_step(params, opt_state, batch) -> (params, opt_state,
+        {"loss", "grad_norm"})`` on ``mesh``'s device; the batch's leaves
+        (numpy or tensors) move there."""
+        device = single_device(mesh)
+        n_micro = self.n_microbatches(shape, mesh)
+        model, opt = self.model, self.opt
+        rules = self.rules(mesh)
+        n_shards = part._axis_size(mesh, tuple(rules.batch_axes))
+
+        def train_step(params, opt_state, batch):
+            with use_mesh(mesh), part.activation_sharding(
+                    rules.batch_axes, shape.global_batch, mesh):
+                # microbatch m takes row m of every data shard
+                xs = {k: _strided_split(torch.as_tensor(v, device=device),
+                                        n_micro, n_shards)
+                      for k, v in batch.items()}
+                flat = leaves(params)
+                gsum = [torch.zeros_like(p, dtype=torch.float32)
+                        for p in flat]
+                lsum = torch.zeros((), dtype=torch.float32, device=device)
+                for m in range(n_micro):
+                    live = [p.detach().requires_grad_() for p in flat]
+                    loss, _ = model.loss(unflatten(params, live),
+                                         {k: v[m] for k, v in xs.items()},
+                                         remat=True)
+                    grads = torch.autograd.grad(loss, live,
+                                                allow_unused=True)
+                    for acc, g in zip(gsum, grads):
+                        if g is not None:  # an unused leaf's is zero
+                            acc.add_(g.to(torch.float32))
+                    lsum = lsum + loss.detach()
+                    del live, loss, grads
+                with torch.no_grad():
+                    n = torch.full((), float(n_micro), dtype=torch.float32,
+                                   device=device)
+                    grads = unflatten(params, [g.div_(n) for g in gsum])
+                    del gsum
+                    grads, gnorm = optimizers.clip_by_global_norm(grads, 1.0)
+                    updates, opt_state = opt.update(grads, opt_state,
+                                                    params)
+                    del grads
+                    params = optimizers.apply_updates(params, updates)
+            return params, opt_state, {"loss": lsum / n, "grad_norm": gnorm}
+
+        return train_step
+
+    def make_prefill_step(self, shape: Shape, mesh=None, *, device=None):
         """``prefill(params, batch) -> (last logits, cache)`` with a fresh
-        cache of ``shape`` on ``device``."""
+        cache of ``shape`` on ``device`` (default: ``mesh``'s device, or
+        ``"cuda"`` without a mesh), under ``mesh``'s activation context
+        when one is given."""
         model = self.model
+        if device is None:
+            device = "cuda" if mesh is None else single_device(mesh)
 
         @torch.inference_mode()
         def prefill(params, batch):
-            return model.prefill(params, batch,
-                                 self._init_cache(shape, device))
+            cache = self._init_cache(shape, device)
+            if mesh is None:
+                return model.prefill(params, batch, cache)
+            with use_mesh(mesh), part.activation_sharding(
+                    self.rules(mesh).batch_axes, shape.global_batch, mesh):
+                return model.prefill(params, batch, cache)
 
         return prefill
 
@@ -148,7 +234,70 @@ class LMHarness:
     # ------------------------------------------------------------------
     # shardings
     # ------------------------------------------------------------------
+    def rules(self, mesh) -> part.PartitionRules:
+        return part.PartitionRules.default(
+            mesh, expert_parallel=self.expert_parallel,
+            attn_tp=self.attn_tp)
+
     def shardings(self, shape: Shape, mesh, kind: str):
-        raise NotImplementedError(
-            "LM shardings are not ported yet: ROADMAP Queue 1 item 12c (the "
-            "LM partitioner)")
+        """``(in_shardings, out_shardings, example_args)`` of the step of
+        ``kind``: trees of :class:`repro_torch.distributed.partition.
+        Sharding` and of ``meta`` tensors, as the twin's for ``jit``."""
+        rules = self.rules(mesh)
+        replicated = part.Sharding(mesh, ())
+        p_shapes = self.param_shapes()
+        p_shard = part.params_partition(p_shapes, mesh, rules)
+        if kind == "train":
+            o_shapes = self.opt.init(p_shapes)
+            o_shard = part.opt_partition(o_shapes, p_shard, mesh)
+            b_shapes = self.batch_shapes(shape)
+            b_shard = part.batch_partition(b_shapes, mesh, rules)
+            return ((p_shard, o_shard, b_shard),
+                    (p_shard, o_shard, replicated),
+                    (p_shapes, o_shapes, b_shapes))
+        if kind == "prefill":
+            b_shapes = self.batch_shapes(shape)
+            b_shard = part.batch_partition(b_shapes, mesh, rules)
+            c_shard = part.cache_partition(self.cache_shapes(shape), mesh,
+                                           rules)
+            return ((p_shard, b_shard), (replicated, c_shard),
+                    (p_shapes, b_shapes))
+        if kind == "decode":
+            c_shapes = self.cache_shapes(shape)
+            c_shard = part.cache_partition(c_shapes, mesh, rules)
+            t_shapes = self.token_shapes(shape)
+            t_shard = part.batch_partition(t_shapes, mesh, rules)
+            pos_shape = torch.empty((), dtype=torch.int32, device=_META)
+            return ((p_shard, c_shard, t_shard, replicated),
+                    (replicated, c_shard),
+                    (p_shapes, c_shapes, t_shapes, pos_shape))
+        raise ValueError(kind)
+
+    def step_fn(self, shape: Shape, mesh, kind: str):
+        if kind == "train":
+            return self.make_train_step(shape, mesh)
+        if kind == "prefill":
+            return self.make_prefill_step(shape, mesh)
+        if kind == "decode":
+            return self.make_decode_step(shape)
+        raise ValueError(kind)
+
+
+def _strided_split(x, n_micro: int, n_shards: int):
+    """(B, ...) -> (n_micro, B / n_micro, ...) with the microbatches
+    strided across the data shards: B = n_shards x n_micro x r, and
+    microbatch m holds rows ``s n_micro r + m r + j``. M-RoPE ids (3, B,
+    S) split on axis 1. A batch the shards do not divide splits plainly
+    (``n_shards`` taken as 1)."""
+    batch_axis = 1 if (x.ndim >= 2 and x.shape[0] == 3) else 0
+    B = x.shape[batch_axis]
+    if B % n_micro != 0:
+        raise ValueError(f"batch {B} not divisible by n_micro {n_micro}")
+    if B % (n_shards * n_micro) == 0:
+        split = (n_shards, n_micro, B // (n_shards * n_micro))
+    else:
+        split = (1, n_micro, B // n_micro)
+    pre = tuple(x.shape[:batch_axis])
+    post = tuple(x.shape[batch_axis + 1:])
+    y = torch.movedim(x.reshape(pre + split + post), batch_axis + 1, 0)
+    return y.reshape((n_micro,) + pre + (split[0] * split[2],) + post)

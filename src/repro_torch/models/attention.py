@@ -20,8 +20,12 @@ MLA (minicpm3) caches only the latent ``ckv`` and the shared rope key
 Cross-attention (whisper) takes K and V from ``kv_x``: no rotary, no
 causal mask, no cache update. Caches are dicts of tensors; an update
 returns new tensors and leaves the caller's cache as it was, as the
-twin's functional updates do. The context-parallel path waits for item
-12c (``DecoderLM`` raises for it).
+twin's functional updates do.
+
+With ``seq_parallel_attn`` (the twin's context-parallel lever) a
+cache-free call of S > 1 scores the whole sequence in one block under the
+sequence and batch constraints of :mod:`repro_torch.distributed.
+partition`, where the twin shards the queries over ``model``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.device import ieee_fp32_matmul
+from repro_torch.distributed.partition import constrain_batch, constrain_seq
 from repro_torch.models.common import (
     TransformerConfig,
     apply_mrope,
@@ -48,11 +53,6 @@ _NEG_INF = -2.0 ** 30
 # Query-chunk length of the outer loop: bounds the score buffer at
 # (B, H, CHUNK, T) float32 instead of (B, H, S, T).
 SDPA_CHUNK = 1024
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
 
 
 # --------------------------------------------------------------------------
@@ -255,9 +255,20 @@ def gqa_forward(
             pos_k = torch.arange(T, dtype=torch.int32,
                                  device=x.device)[None].expand(B, T)
 
-    out = sdpa(q, k_att.to(q.dtype), v_att.to(q.dtype), positions, pos_k,
-               causal=causal and kv_x is None, window=window,
-               q_group=cfg.q_group, scores_bf16=cfg.attn_scores_bf16)
+    if cfg.seq_parallel_attn and cache is None and S > 1:
+        # context parallelism: the twin shards the queries over `model`
+        # and gathers K/V; the whole sequence is one score block
+        q = constrain_seq(q, 1)
+        mask_src = constrain_seq(positions, 1)
+        out = _sdpa_block(
+            q, k_att.to(q.dtype), v_att.to(q.dtype),
+            _full_mask(mask_src, pos_k, causal=causal and kv_x is None,
+                       window=window), cfg.q_group, cfg.attn_scores_bf16)
+        out = constrain_batch(out)  # S gathered back before wo
+    else:
+        out = sdpa(q, k_att.to(q.dtype), v_att.to(q.dtype), positions,
+                   pos_k, causal=causal and kv_x is None, window=window,
+                   q_group=cfg.q_group, scores_bf16=cfg.attn_scores_bf16)
     out = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
     if "bo" in p:
         out = out + p["bo"]

@@ -7,8 +7,9 @@ config schema is the twin's, field for field, with ``dtype`` a
 the port's copy of JAX's threefry, so a key gives the twin's params (the
 normals to rtol 1e-6; see :func:`repro_torch.core.prng.normal`).
 
-The twin's logical-axis registry (``AXES``, ``axes_of``) feeds its LM
-partitioner and waits with it (ROADMAP Queue 1 item 12c).
+The logical-axis registry (``AXES``, ``axes_of``) is the twin's, entry
+for entry: it feeds the LM partitioner
+(:mod:`repro_torch.distributed.partition`).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ __all__ = [
     "MoEConfig", "MLAConfig", "SSMConfig", "RWKVConfig", "TransformerConfig",
     "rms_norm", "layer_norm", "make_rope", "apply_rope", "apply_mrope",
     "cross_entropy_loss", "dense_init", "silu", "gelu", "sigmoid",
-    "softplus",
+    "softplus", "AXES", "axes_of",
 ]
 
 # --------------------------------------------------------------------------
@@ -327,3 +328,110 @@ def cross_entropy_loss(logits, targets, z_weight: float = 1e-4):
     ce = torch.mean(logz - gold)
     zl = z_weight * torch.mean(logz * logz)
     return ce + zl, {"ce": ce, "z_loss": zl}
+
+
+# --------------------------------------------------------------------------
+# Logical-axis registry: leaf path suffix -> logical axes (no stacked dim;
+# the partitioner prepends "layers" when leaf rank == len(axes)+1).
+# --------------------------------------------------------------------------
+
+AXES: dict[str, tuple[str | None, ...]] = {
+    # embeddings / head
+    "embed/table": ("vocab", "embed"),
+    "unembed/table": ("embed", "vocab"),
+    "final_norm/scale": (None,),
+    # attention
+    "attn/wq": ("embed", "heads"),
+    "attn/wk": ("embed", "kv"),
+    "attn/wv": ("embed", "kv"),
+    "attn/wo": ("heads", "embed"),
+    "attn/q_norm/scale": (None,),
+    "attn/k_norm/scale": (None,),
+    # MLA
+    "attn/wq_a": ("embed", None),
+    "attn/wq_b": (None, "heads"),
+    "attn/wkv_a": ("embed", None),
+    "attn/wkv_b": (None, "heads"),
+    "attn/q_a_norm/scale": (None,),
+    "attn/kv_a_norm/scale": (None,),
+    # dense MLP
+    "mlp/w_gate": ("embed", "ffn"),
+    "mlp/w_up": ("embed", "ffn"),
+    "mlp/w_down": ("ffn", "embed"),
+    # MoE. The router is tiny (d x E) — replicate it: sharding its embed
+    # dim over data makes the routing matmul contract a sharded dim and
+    # all-reduce (T, E) f32 per layer (§Perf cell A, hypothesis A5).
+    "moe/router": (None, None),
+    "moe/w_gate": ("expert", "embed", "ffn"),
+    "moe/w_up": ("expert", "embed", "ffn"),
+    "moe/w_down": ("expert", "ffn", "embed"),
+    "moe/shared_w_gate": ("embed", "ffn"),
+    "moe/shared_w_up": ("embed", "ffn"),
+    "moe/shared_w_down": ("ffn", "embed"),
+    # mamba2
+    "ssm/in_proj": ("embed", "ffn"),
+    "ssm/out_proj": ("ffn", "embed"),
+    "ssm/conv_w": (None, "ffn"),
+    "ssm/A_log": ("ffn",),
+    "ssm/D": ("ffn",),
+    "ssm/dt_bias": ("ffn",),
+    "ssm/norm/scale": ("ffn",),
+    # rwkv6
+    "rwkv/wr": ("embed", "heads"),
+    "rwkv/wk": ("embed", "heads"),
+    "rwkv/wv": ("embed", "heads"),
+    "rwkv/wg": ("embed", "heads"),
+    "rwkv/wo": ("heads", "embed"),
+    "rwkv/decay_a": ("embed", None),
+    "rwkv/decay_b": (None, "heads"),
+    "rwkv/mix": (None, "embed"),
+    "rwkv/u": ("heads",),
+    "rwkv/ln_x/scale": ("heads",),
+    "rwkv/wk_mlp": ("embed", "ffn"),
+    "rwkv/wv_mlp": ("ffn", "embed"),
+    "rwkv/wr_mlp": ("embed", None),
+    # norms inside blocks
+    "pre_norm/scale": (None,),
+    "post_norm/scale": (None,),
+    "pre_mlp_norm/scale": (None,),
+    # layer norms with bias (whisper)
+    "pre_norm/bias": (None,),
+    "post_norm/bias": (None,),
+    "final_norm/bias": (None,),
+    # whisper cross-attn
+    "xattn/wq": ("embed", "heads"),
+    "xattn/wk": ("embed", "kv"),
+    "xattn/wv": ("embed", "kv"),
+    "xattn/wo": ("heads", "embed"),
+    "pre_xattn_norm/scale": (None,),
+    "pre_xattn_norm/bias": (None,),
+    # whisper biases
+    "attn/bq": ("heads",),
+    "attn/bv": ("kv",),
+    "attn/bo": (None,),
+    "xattn/bq": ("heads",),
+    "xattn/bv": ("kv",),
+    "xattn/bo": (None,),
+    "mlp/b_up": ("ffn",),
+    "mlp/b_down": (None,),
+    # positional embeddings (whisper)
+    "pos_embed/table": (None, "embed"),
+    # zamba2 lora adapters on the shared block
+    "lora_a": ("embed", None),
+    "lora_b": (None, "heads"),
+}
+
+
+def axes_of(path: str, leaf) -> tuple[str | None, ...]:
+    """Resolve logical axes for a leaf by longest-suffix match in AXES."""
+    parts = path.split("/")
+    for take in range(min(3, len(parts)), 0, -1):
+        suffix = "/".join(parts[-take:])
+        if suffix in AXES:
+            axes = AXES[suffix]
+            if leaf.ndim == len(axes) + 1:
+                return ("layers",) + tuple(axes)
+            if leaf.ndim == len(axes):
+                return tuple(axes)
+    # sane default: replicate
+    return (None,) * leaf.ndim

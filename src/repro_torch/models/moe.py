@@ -12,9 +12,12 @@ Every size of the dispatch follows from the shapes (``C`` from T, k, E
 and the capacity factor), so it issues no host sync: no ``.item()``, no
 ``nonzero``, no boolean-mask indexing.
 
-The twin's expert-parallel variant (``moe_forward_ep``, one all-to-all
-each way over a device mesh) is a partitioner lever and waits for ROADMAP
-Queue 1 item 12c: it raises.
+``moe_forward_ep`` is the twin's expert-parallel ``shard_map`` written
+for one controller: each batch-shard row routes its own tokens under a
+local capacity, the all-to-all is a regrouping of the rows' send
+buffers, each data row's ``E / n_data`` experts run on what they receive
+(the ``model`` axis's partial products summed as one unsplit product),
+and the results go home the same way.
 """
 
 from __future__ import annotations
@@ -164,9 +167,103 @@ def moe_forward(p: dict, x, cfg: TransformerConfig, *,
     return out.reshape(B, S, d), aux
 
 
+def _ep_eligible(cfg, mesh) -> bool:
+    return (mesh is not None and not mesh.empty
+            and "data" in mesh.axis_names
+            and cfg.moe.n_experts % mesh.shape["data"] == 0
+            and cfg.d_ff % max(mesh.shape.get("model", 1), 1) == 0)
+
+
 def moe_forward_ep(p: dict, x, cfg: TransformerConfig, *,
-                   dropless: bool = False):
-    """Expert parallelism over a device mesh: not ported yet."""
-    raise NotImplementedError(
-        "moe_forward_ep (expert parallelism, moe_ep) is not ported yet: "
-        "ROADMAP Queue 1 item 12c (the LM partitioner)")
+                   dropless: bool = False, mesh=None):
+    """Expert-parallel MoE block over ``mesh`` (default: the ambient one,
+    :func:`repro_torch.launch.mesh.current_mesh`). x: (B, S, d), its
+    batch split over the mesh's batch axes (``pod`` x ``data``, row-major)
+    as the twin's ``shard_map`` splits it. Falls back to
+    :func:`moe_forward` with no mesh, or where ``E`` does not divide over
+    ``data`` or ``d_ff`` over ``model``.
+
+    Per batch-shard row: the router over its ``T = B_row S`` tokens, a
+    local capacity ``C`` (``T`` when dropless), the row's sorted pairs in
+    an ``(E C, d)`` send buffer. Within a pod, row ``j`` receives every
+    row's buffer for its experts ``j epr .. (j + 1) epr - 1`` (``epr = E /
+    n_data``), runs them, and sends each row its results back. The aux
+    loss is the mean of the rows' (the twin's ``pmean`` over ``data``),
+    pod 0's where there are pods."""
+    if mesh is None:
+        from repro_torch.launch.mesh import current_mesh
+        mesh = current_mesh()
+    if not _ep_eligible(cfg, mesh):
+        return moe_forward(p, x, cfg, dropless=dropless)
+    m: MoEConfig = cfg.moe
+    E, k = m.n_experts, m.top_k
+    n_ed = mesh.shape["data"]
+    n_pod = mesh.shape.get("pod", 1)
+    epr = E // n_ed                       # experts per data row
+    B, S, d = x.shape
+    if B % (n_pod * n_ed) != 0:
+        raise ValueError(f"batch {B} does not split over {n_pod * n_ed} "
+                         f"batch-shard rows")
+    Bl = B // (n_pod * n_ed)
+    T = Bl * S
+    dev = x.device
+    C = capacity(T, m, dropless)
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+
+    # ---- per row: route, dispatch into its send buffer ----
+    rows = []   # (xf, st, sw, keep, slot, aux) a row, pod-major
+    sends = []
+    for r in range(n_pod * n_ed):
+        xf = x[r * Bl:(r + 1) * Bl].reshape(T, d)
+        probs, gate_vals, gate_idx = route(p, xf, m)
+        me = torch.mean(probs, dim=0)
+        ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
+            0, gate_idx.reshape(-1),
+            torch.ones((T * k,), dtype=torch.float32, device=dev)) / (T * k)
+        aux = m.router_aux_weight * E * torch.sum(me * ce)
+        order, se, st, keep, slot = dispatch(gate_idx, E, C)
+        sw = gate_vals.reshape(-1)[order]
+        send = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
+        send = send.index_copy(0, slot,
+                               torch.where(keep[:, None], xf[st], zero))
+        sends.append(send[:E * C])
+        rows.append((xf, st, sw, keep, slot, aux))
+
+    # ---- the all-to-all out: (pod, src, dst, epr C, d) -> each data
+    # row's experts over (src, C) rows: (pod, E, n_ed C, d) ----
+    send = torch.stack(sends).reshape(n_pod, n_ed, n_ed, epr, C, d)
+    eb = send.permute(0, 2, 3, 1, 4, 5).reshape(n_pod, E, n_ed * C, d)
+
+    # ---- the experts: row j holds experts j epr .. (j + 1) epr - 1,
+    # so expert e of the stacked weights meets expert e's rows ----
+    def experts(eb):
+        if cfg.mlp_kind in ("swiglu", "geglu"):
+            act = silu if cfg.mlp_kind == "swiglu" else gelu
+            h = act(torch.bmm(eb, p["w_gate"].to(x.dtype)))
+            h = h * torch.bmm(eb, p["w_up"].to(x.dtype))
+        else:
+            h = gelu(torch.bmm(eb, p["w_up"].to(x.dtype)))
+        return torch.bmm(h, p["w_down"].to(x.dtype))
+
+    y = torch.stack([experts(eb[i]) for i in range(n_pod)])
+
+    # ---- route back: (pod, dst, epr, src, C, d) -> (pod, src, E C, d) ----
+    back = (y.reshape(n_pod, n_ed, epr, n_ed, C, d)
+            .permute(0, 3, 1, 2, 4, 5).reshape(n_pod * n_ed, E * C, d))
+
+    outs, auxs = [], []
+    for r, (xf, st, sw, keep, slot, aux) in enumerate(rows):
+        contrib = torch.where(
+            keep[:, None],
+            sw[:, None].to(x.dtype) * back[r][slot.clamp(0, E * C - 1)],
+            zero)
+        out = torch.zeros((T, d), dtype=x.dtype, device=dev).index_add_(
+            0, st, contrib)
+        if m.shared_expert:
+            hs = silu(xf @ p["shared_w_gate"].to(x.dtype)) * (
+                xf @ p["shared_w_up"].to(x.dtype))
+            out = out + hs @ p["shared_w_down"].to(x.dtype)
+        outs.append(out.reshape(Bl, S, d))
+        auxs.append(aux)
+    aux = torch.mean(torch.stack(auxs[:n_ed]))
+    return torch.cat(outs), aux

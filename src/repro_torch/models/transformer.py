@@ -16,17 +16,24 @@ share the layer body:
   * ``prefill``      — forward + populate the caches, last-token logits
   * ``decode_step``  — one token against the stacked caches
 
-Rematerialisation waits for ROADMAP Queue 1 item 12b,
-``seq_parallel_attn`` and ``moe_ep`` for item 12c: ``DecoderLM`` raises
-for them and names the item.
+With ``remat=True`` each layer body runs under
+``torch.utils.checkpoint`` (:func:`remat`), as the twin wraps it in
+``jax.checkpoint`` with ``cfg.remat_policy``: ``"nothing"`` recomputes
+the whole body in the backward pass, ``"dots"`` keeps the outputs of the
+matrix products (a selective-checkpoint policy), ``"attn_out"`` keeps the
+attention output (the body split at it, each half checkpointed). With
+``moe_ep`` the MoE layers run :func:`repro_torch.models.moe.
+moe_forward_ep` over the ambient mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
@@ -42,13 +49,39 @@ from repro_torch.models.common import (
     rms_norm,
     silu,
 )
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map, unflatten
 
-__all__ = ["DecoderLM", "init_mlp", "mlp_forward"]
+__all__ = ["DecoderLM", "init_mlp", "mlp_forward", "remat"]
+
+# the products "dots" keeps (``jax.checkpoint_policies.dots_saveable``
+# keeps every dot_general); matmul and einsum lower to these
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default]
 
 
-def _not_ported(what: str, item: str):
-    attn._not_ported(what, item)
+def remat(fn, policy: str = "nothing"):
+    """``fn`` under activation checkpointing, the twin's ``jax.checkpoint``:
+    ``"nothing"`` saves only the inputs and recomputes the rest in the
+    backward pass; ``"dots"`` also keeps the outputs of the matrix
+    products. (``"attn_out"`` needs a named tensor inside a body: the
+    blocks split their body at it and checkpoint each half under
+    ``"nothing"``.)"""
+    if policy == "dots":
+        ctx = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                _DOTS)
+        return lambda *a: _ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                           context_fn=ctx)
+    if policy != "nothing":
+        raise ValueError(f"unknown remat policy {policy!r}")
+    return lambda *a: _ckpt.checkpoint(fn, *a, use_reentrant=False)
+
+
+def _unstacked(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a tree stacked on a leading axis, as
+    views. One ``unbind`` a leaf, so a gradient reaches each stacked leaf
+    as one stack of the layers' gradients, not ``n`` full-size adds."""
+    parts = [t.unbind(0) for t in leaves(tree)]
+    return [unflatten(tree, [p[i] for p in parts]) for i in range(n)]
 
 
 def _device(device) -> torch.device:
@@ -129,9 +162,6 @@ class DecoderLM:
         cfg = self.cfg
         if cfg.block_kind not in ("attn", "mamba2", "rwkv6"):
             raise ValueError(cfg.block_kind)
-        for field in ("seq_parallel_attn", "moe_ep"):
-            if getattr(cfg, field):
-                _not_ported(field, "12c (the LM partitioner)")
 
     # ---------------- parameters ----------------
     def init(self, key, *, device="cuda") -> dict:
@@ -268,36 +298,54 @@ class DecoderLM:
         return x
 
     def _layer_body(self, x, layer_p, window, cache, write_pos, positions,
-                    mrope_positions=None):
-        """One block; cache may be None. Returns (x, new_cache, aux)."""
+                    mrope_positions=None, mesh=None):
+        """One block; cache may be None. Returns (x, new_cache, aux).
+        ``mesh`` is the one ``moe_ep`` routes over (read by the caller,
+        so a recompute in the backward pass sees the forward's)."""
         cfg = self.cfg
         if cfg.block_kind == "mamba2":
             return self._mamba2_body(x, layer_p, cache)
         if cfg.block_kind == "rwkv6":
             return self._rwkv6_body(x, layer_p, cache)
+        a_out, new_cache = self._attn_half(x, layer_p, window, cache,
+                                           write_pos, positions,
+                                           mrope_positions)
+        x, aux = self._mlp_half(x + a_out, layer_p, cache, mesh)
+        return x, (new_cache if cache is not None else None), aux
+
+    def _attn_half(self, x, layer_p, window, cache, write_pos, positions,
+                   mrope_positions):
+        """The attention sublayer's output (the twin's ``"attn_out"``)
+        and its new cache."""
+        cfg = self.cfg
         h = rms_norm(x, layer_p["pre_norm"]["scale"], cfg.norm_eps)
         if cfg.mla is not None:
-            a_out, new_cache = attn.mla_forward(
+            return attn.mla_forward(
                 layer_p["attn"], h, cfg=cfg, positions=positions,
                 cache=cache, write_pos=write_pos)
-        else:
-            a_out, new_cache = attn.gqa_forward(
-                layer_p["attn"], h, cfg=cfg, positions=positions,
-                window=window, cache=cache, write_pos=write_pos,
-                mrope_positions=mrope_positions)
-        x = x + a_out
+        return attn.gqa_forward(
+            layer_p["attn"], h, cfg=cfg, positions=positions,
+            window=window, cache=cache, write_pos=write_pos,
+            mrope_positions=mrope_positions)
+
+    def _mlp_half(self, x, layer_p, cache, mesh):
+        """``x`` + the MLP or MoE sublayer, and the MoE aux loss."""
+        cfg = self.cfg
         h = rms_norm(x, layer_p["pre_mlp_norm"]["scale"], cfg.norm_eps)
         if cfg.moe:
             # decode steps route droplessly (C = T = batch is small);
             # train / prefill keep GShard capacity semantics
             dropless = cache is not None and h.shape[1] == 1
-            m_out, aux = moe_mod.moe_forward(layer_p["moe"], h, cfg,
-                                             dropless=dropless)
+            if cfg.moe_ep:
+                m_out, aux = moe_mod.moe_forward_ep(
+                    layer_p["moe"], h, cfg, dropless=dropless, mesh=mesh)
+            else:
+                m_out, aux = moe_mod.moe_forward(layer_p["moe"], h, cfg,
+                                                 dropless=dropless)
         else:
             m_out = mlp_forward(layer_p["mlp"], h, cfg)
             aux = self._zero(x)
-        x = x + m_out
-        return x, (new_cache if cache is not None else None), aux
+        return x + m_out, aux
 
     def _mamba2_body(self, x, layer_p, cache):
         cfg = self.cfg
@@ -346,25 +394,53 @@ class DecoderLM:
                    write_pos, *, remat: bool = False):
         """The twin's ``lax.scan`` over layers as a loop over L. Returns
         (x, new_cache, the sum of the layers' aux losses)."""
-        if remat:
-            _not_ported("remat (activation checkpointing)",
-                        "12b (LM training)")
         if cache is not None and "local" in cache:
             return self._run_stack_split(params, x, positions, cache,
                                          write_pos)
+        from repro_torch.launch.mesh import current_mesh
+
+        cfg = self.cfg
+        mesh = current_mesh() if cfg.moe_ep else None
         windows = self.layer_windows()
+        layers = _unstacked(params["layers"], cfg.n_layers)
         new, auxs = [], []
-        for i in range(self.cfg.n_layers):
-            layer_p = tree_map(lambda p: p[i], params["layers"])
+        for i in range(cfg.n_layers):
             layer_cache = (None if cache is None
                            else {k: v[i] for k, v in cache.items()})
-            x, c, aux = self._layer_body(x, layer_p, int(windows[i]),
-                                         layer_cache, write_pos, positions,
-                                         mrope_positions)
+            if remat and cache is None:
+                x, aux = self._remat_body(x, layers[i], int(windows[i]),
+                                          positions, mrope_positions, mesh)
+                c = None
+            else:
+                x, c, aux = self._layer_body(
+                    x, layers[i], int(windows[i]), layer_cache, write_pos,
+                    positions, mrope_positions, mesh)
             new.append(c)
             auxs.append(aux)
         new_cache = None if cache is None else _stacked(new, cache)
         return x, new_cache, torch.sum(torch.stack(auxs))
+
+    def _remat_body(self, x, layer_p, window, positions, mrope_positions,
+                    mesh):
+        """One cache-free layer under ``cfg.remat_policy``: (x, aux)."""
+        cfg = self.cfg
+        if cfg.remat_policy == "attn_out" and cfg.block_kind == "attn":
+            a_out, _ = remat(lambda x, lp: self._attn_half(
+                x, lp, window, None, None, positions, mrope_positions))(
+                    x, layer_p)
+            return remat(lambda x, lp: self._mlp_half(x, lp, None, mesh))(
+                x + a_out, layer_p)
+        # "attn_out" names a tensor only attention blocks have: elsewhere
+        # it saves nothing, as "nothing"
+        policy = "nothing" if cfg.remat_policy == "attn_out" else (
+            cfg.remat_policy)
+
+        def body(x, lp):
+            x, _, aux = self._layer_body(x, lp, window, None, None,
+                                         positions, mrope_positions, mesh)
+            return x, aux
+
+        return remat(body, policy)(x, layer_p)
 
     def _run_stack_split(self, params, x, positions, cache, write_pos):
         """The split-cache path: over the [local x (g-1), global] layer
@@ -373,14 +449,14 @@ class DecoderLM:
         and the aux loss is zero."""
         G, nloc = self._split_geometry()
         w = int(self.cfg.sliding_window)
-        layers = params["layers"]
+        layers = _unstacked(params["layers"], self.cfg.n_layers)
         new_local, new_global = [], []
         for gi in range(G):
             locals_ = []
             for j in range(nloc):
                 i = gi * (nloc + 1) + j
                 x, c, _ = self._layer_body(
-                    x, tree_map(lambda p: p[i], layers), w,
+                    x, layers[i], w,
                     {k: v[gi, j] for k, v in cache["local"].items()},
                     write_pos, positions, None)
                 locals_.append(c)
@@ -388,7 +464,7 @@ class DecoderLM:
                 locals_, {k: v[gi] for k, v in cache["local"].items()}))
             i = gi * (nloc + 1) + nloc
             x, c, _ = self._layer_body(
-                x, tree_map(lambda p: p[i], layers), 0,
+                x, layers[i], 0,
                 {k: v[gi] for k, v in cache["global"].items()},
                 write_pos, positions, None)
             new_global.append(c)

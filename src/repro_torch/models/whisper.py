@@ -11,6 +11,8 @@ MLPs, tied decoder unembedding.
 Serving: the cross-attention K/V are computed once at prefill and
 cached; decode carries (self KV cache, cross KV cache), stacked on a
 leading L axis. The twin's ``lax.scan`` over layers is a Python loop.
+With ``remat=True`` each encoder and decoder layer runs under activation
+checkpointing that saves nothing, as the twin's ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -31,11 +33,12 @@ from repro_torch.models.common import (
 from repro_torch.models.transformer import (
     _device,
     _expanded,
-    _not_ported,
     _stack_into,
     _stacked,
+    _unstacked,
     init_mlp,
     mlp_forward,
+    remat as _remat,
 )
 from repro_torch.tree import tree_map
 
@@ -124,9 +127,6 @@ class WhisperLM:
 
     def encode(self, params, enc_embeds, *, remat: bool = False):
         """enc_embeds: (B, S_enc, d) stub-frontend output -> memory."""
-        if remat:
-            _not_ported("remat (activation checkpointing)",
-                        "12b (LM training)")
         cfg = self.cfg
         dev = params["embed"]["table"].device
         enc_embeds = torch.as_tensor(enc_embeds, device=dev)
@@ -134,15 +134,19 @@ class WhisperLM:
         x = enc_embeds.to(cfg.dtype) + torch.from_numpy(
             _sinusoid(S, d)).to(dev)[None].to(cfg.dtype)
         positions = self._positions(B, S, dev)
-        layers = params["enc_layers"]
-        for i in range(cfg.n_layers):
-            lp = tree_map(lambda a: a[i], layers)
+
+        def body(x, lp):
             h = _ln(x, lp["pre_norm"], cfg.norm_eps)
             a, _ = attn.gqa_forward(lp["attn"], h, cfg=cfg,
                                     positions=positions, causal=False)
             x = x + a
             h = _ln(x, lp["pre_mlp_norm"], cfg.norm_eps)
-            x = x + mlp_forward(lp["mlp"], h, cfg)
+            return x + mlp_forward(lp["mlp"], h, cfg)
+
+        if remat:
+            body = _remat(body)
+        for lp in _unstacked(params["enc_layers"], cfg.n_layers):
+            x = body(x, lp)
         return _ln(x, params["enc_final_norm"], cfg.norm_eps)
 
     def _dec_embed(self, params, tokens, pos0: int):
@@ -159,33 +163,23 @@ class WhisperLM:
         """The decoder layers: self-attention (on the cache, if given),
         cross-attention on ``memory`` or, without it, on the cached cross
         K/V, the MLP. Returns (tied logits, new cache or None)."""
-        if remat:
-            _not_ported("remat (activation checkpointing)",
-                        "12b (LM training)")
         cfg = self.cfg
-        layers = params["dec_layers"]
+        layers = _unstacked(params["dec_layers"], cfg.n_layers)
         new_self = []
-        for i in range(cfg.n_layers):
-            lp = tree_map(lambda a: a[i], layers)
-            h = _ln(x, lp["pre_norm"], cfg.norm_eps)
-            self_cache = (None if cache is None else
-                          {k: v[i] for k, v in cache["self"].items()})
-            a, ns = attn.gqa_forward(lp["attn"], h, cfg=cfg,
-                                     positions=positions, cache=self_cache,
-                                     write_pos=write_pos)
-            x = x + a
-            h = _ln(x, lp["pre_xattn_norm"], cfg.norm_eps)
-            if memory is not None:
-                xa, _ = attn.gqa_forward(lp["xattn"], h, cfg=cfg,
-                                         positions=positions, kv_x=memory)
-            else:  # decode: reuse the cached cross K/V
-                xa = self._xattn_cached(
-                    lp["xattn"], h, positions,
-                    {k: v[i] for k, v in cache["cross"].items()})
-            x = x + xa
-            h = _ln(x, lp["pre_mlp_norm"], cfg.norm_eps)
-            x = x + mlp_forward(lp["mlp"], h, cfg)
-            new_self.append(ns)
+        if remat and cache is None:
+            body = _remat(lambda x, lp, memory: self._dec_layer(
+                x, lp, positions, memory, None, None, None)[0])
+            for lp in layers:
+                x = body(x, lp, memory)
+        else:
+            for i, lp in enumerate(layers):
+                self_cache = cross = None
+                if cache is not None:
+                    self_cache = {k: v[i] for k, v in cache["self"].items()}
+                    cross = {k: v[i] for k, v in cache["cross"].items()}
+                x, ns = self._dec_layer(x, lp, positions, memory,
+                                        self_cache, cross, write_pos)
+                new_self.append(ns)
         x = _ln(x, params["final_norm"], cfg.norm_eps)
         logits = x @ params["embed"]["table"].T  # tied
         new_cache = None
@@ -193,6 +187,24 @@ class WhisperLM:
             new_cache = {"self": _stacked(new_self, cache["self"]),
                          "cross": cache["cross"]}
         return logits, new_cache
+
+    def _dec_layer(self, x, lp, positions, memory, self_cache, cross,
+                   write_pos):
+        """One decoder layer: (x, new self cache)."""
+        cfg = self.cfg
+        h = _ln(x, lp["pre_norm"], cfg.norm_eps)
+        a, ns = attn.gqa_forward(lp["attn"], h, cfg=cfg, positions=positions,
+                                 cache=self_cache, write_pos=write_pos)
+        x = x + a
+        h = _ln(x, lp["pre_xattn_norm"], cfg.norm_eps)
+        if memory is not None:
+            xa, _ = attn.gqa_forward(lp["xattn"], h, cfg=cfg,
+                                     positions=positions, kv_x=memory)
+        else:  # decode: reuse the cached cross K/V
+            xa = self._xattn_cached(lp["xattn"], h, positions, cross)
+        x = x + xa
+        h = _ln(x, lp["pre_mlp_norm"], cfg.norm_eps)
+        return x + mlp_forward(lp["mlp"], h, cfg), ns
 
     def _xattn_cached(self, p, x, positions, cross):
         """Cross-attention against precomputed (k, v)."""

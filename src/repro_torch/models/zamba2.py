@@ -8,6 +8,10 @@ to the shared block).
 
 Decode state: 38 Mamba (conv, ssm) states + 6 shared-attention KV caches
 (one per invocation); only the attention caches grow with context.
+
+With ``remat=True`` each Mamba scan runs under activation checkpointing
+that saves nothing (the twin's ``jax.checkpoint`` of ``mamba_fwd``); the
+shared block is not checkpointed, as in the twin.
 """
 
 from __future__ import annotations
@@ -28,11 +32,12 @@ from repro_torch.models.common import (
 from repro_torch.models.transformer import (
     _device,
     _expanded,
-    _not_ported,
     _stack_into,
     _stacked,
+    _unstacked,
     init_mlp,
     mlp_forward,
+    remat as _remat,
 )
 from repro_torch.tree import tree_map
 
@@ -128,18 +133,23 @@ class Zamba2LM:
         """The Mamba layers in order, the shared block after each of
         ``shared_layers``: the scan (no cache), the step (one token) or
         the scan keeping its final state (prefill)."""
-        if remat:
-            _not_ported("remat (activation checkpointing)",
-                        "12b (LM training)")
         cfg = self.cfg
         shared_at = set(self.shared_layers)
         new_mamba, new_attn = [], []
         inv = 0
+
+        def mamba_fwd(lp, h):
+            out, _ = m2.mamba2_scan(lp, h, cfg=cfg)
+            return out
+
+        if remat:
+            mamba_fwd = _remat(mamba_fwd)
+        layers = _unstacked(params["layers"], cfg.n_layers)
         for li in range(cfg.n_layers):
-            lp = tree_map(lambda a: a[li], params["layers"])
+            lp = layers[li]
             h = rms_norm(x, lp["pre_norm"]["scale"], cfg.norm_eps)
             if cache is None:
-                s_out, nc = m2.mamba2_scan(lp["ssm"], h, cfg=cfg)
+                s_out, nc = mamba_fwd(lp["ssm"], h), None
             elif x.shape[1] == 1:
                 mc = {k: v[li] for k, v in cache["mamba"].items()}
                 s_out, nc = m2.mamba2_step(lp["ssm"], h, mc, cfg=cfg)

@@ -118,23 +118,30 @@ def _adam_impl(lr, b1, b2, eps, weight_decay) -> Optimizer:
         }
 
     def update(grads, state, params=None):
+        # The twin's expressions, op for op; each product or sum lands in
+        # place in a fresh temporary, so a leaf holds at most two
+        # temporaries of its size (a 2.5 B-param state fits one card).
         step = state["step"] + 1
         lr_t = lr_fn(step)
         stepf = step.to(torch.float32)
         bc1 = 1.0 - torch.pow(b1, stepf)
         bc2 = 1.0 - torch.pow(b2, stepf)
         m = tree_map(
-            lambda m_, g: b1 * m_ + (1 - b1) * g.to(torch.float32),
+            lambda m_, g: (m_ * b1).add_(
+                g.to(torch.float32, copy=True).mul_(1 - b1)),
             state["m"], grads)
         v = tree_map(
-            lambda v_, g: b2 * v_
-            + (1 - b2) * torch.square(g.to(torch.float32)),
+            lambda v_, g: (v_ * b2).add_(
+                torch.square(g.to(torch.float32)).mul_(1 - b2)),
             state["v"], grads)
 
         def upd(m_, v_, p=None):
-            u = -(lr_t) * (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+            # -(lr) * (m / bc1) / (sqrt(v / bc2) + eps) [- lr wd p]
+            u = (m_ / bc1).mul_(-(lr_t))
+            u.div_((v_ / bc2).sqrt_().add_(eps))
             if weight_decay and p is not None:
-                u = u - lr_t * weight_decay * p.to(torch.float32)
+                u.sub_(p.to(torch.float32, copy=True).mul_(
+                    lr_t * weight_decay))
             return u
 
         if weight_decay and params is not None:

@@ -190,33 +190,31 @@ def test_unknown_arch_is_a_key_error():
 
 
 def test_unported_blocks_and_steps_raise():
-    """Only rematerialisation and the train step (item 12b), the shardings
-    and the two sharding levers (item 12c) raise; an unknown block kind is
-    a ValueError."""
+    """What still raises: a train or prefill step on a mesh over several
+    distinct cards (LM execution across cards, ROADMAP item 12e), an
+    unknown block kind (a ValueError) and the long_500k cell of a
+    full-attention arch (a SkipCell). The train step, the shardings and
+    the remat / ``seq_parallel_attn`` / ``moe_ep`` levers run
+    (``tests/test_torch_lm_train.py``, ``test_torch_lm_mesh.py``,
+    ``test_torch_lm_partition.py``)."""
+    from repro_torch.launch.mesh import LMMesh
+
     base = tconfigs.get_arch("granite-3-2b").REDUCED
     build = tconfigs.get_arch("granite-3-2b").build
     with pytest.raises(ValueError):
         build(dataclasses.replace(base, block_kind="no-such-block"))
     for lever in ("seq_parallel_attn", "moe_ep"):
-        with pytest.raises(NotImplementedError, match="item 12c"):
-            build(dataclasses.replace(base, **{lever: True}))
-    model = build(dataclasses.replace(base, dtype=torch.float32))
-    params = model.init(prng.key(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        model.forward(params, {"tokens": np.ones((1, 4), np.int32)},
-                      remat=True)
-    for arch in ("zamba2-1.2b", "whisper-large-v3"):
-        mod = tconfigs.get_arch(arch)
-        m = mod.build(dataclasses.replace(mod.REDUCED, dtype=torch.float32))
-        batch = {"tokens": np.ones((1, 4), np.int32),
-                 "enc_embeds": np.zeros((1, 4, 64), np.float32)}
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            m.forward(m.init(prng.key(0), device="cpu"), batch, remat=True)
+        assert getattr(build(dataclasses.replace(base, **{lever: True}))
+                       .cfg, lever)
     h = LMHarness("granite-3-2b", cfg=base)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        h.make_train_step(SHAPES["train_4k"])
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        h.shardings(SHAPES["decode_32k"], None, "decode")
+    two_cards = LMMesh(("data", "model"), (2, 1), ("cuda:0", "cuda:1"))
+    with pytest.raises(NotImplementedError, match="item 12e"):
+        h.make_train_step(SHAPES["train_4k"], two_cards)
+    with pytest.raises(NotImplementedError, match="item 12e"):
+        h.make_prefill_step(SHAPES["prefill_32k"], two_cards)
+    assert h.shardings(SHAPES["decode_32k"], two_cards, "decode")
+    with pytest.raises(ValueError):
+        h.shardings(SHAPES["decode_32k"], two_cards, "no-such-kind")
     with pytest.raises(SkipCell):
         h.cache_shapes(SHAPES["long_500k"])
 

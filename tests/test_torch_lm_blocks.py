@@ -270,9 +270,39 @@ def test_moe_forward_bf16_where_router_margin_clears(arch, dropless):
 
 
 def test_moe_ep_raises_with_its_item():
+    """``moe_forward_ep`` falls back to the dense dispatch (equal outputs
+    and aux) with no ambient mesh and on a mesh whose data axis does not
+    divide the experts, as the twin's; on an eligible mesh a batch that
+    does not split over the batch-shard rows raises, as the twin's
+    ``shard_map`` refuses it."""
+    from repro_torch.launch.mesh import make_host_mesh, use_mesh
+
     jcfg, tcfg, jp, tp, jx, tx = _moe_case("llama4-scout-17b-a16e", None)
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    want, want_aux = tmoe.moe_forward(tp, tx, tcfg)
+    for mesh in (None, make_host_mesh(data=3, devices=["cpu"])):
+        with use_mesh(mesh):
+            got, aux = tmoe.moe_forward_ep(tp, tx, tcfg)
+        assert torch.equal(got, want) and torch.equal(aux, want_aux)
+    rows = make_host_mesh(data=4, devices=["cpu"])   # 4 experts, B 2
+    with use_mesh(rows), pytest.raises(ValueError, match="split"):
         tmoe.moe_forward_ep(tp, tx, tcfg)
+
+
+def test_moe_ep_falls_back_without_mesh(rng):
+    """``tests/test_perf_variants.py::test_moe_ep_falls_back_without_mesh``
+    on the port: with ``moe_ep`` and no mesh the model's loss is finite
+    and equals the dense dispatch's."""
+    cfg = dataclasses.replace(tconfigs.get_arch("mixtral-8x7b").REDUCED,
+                              dtype=torch.float32)
+    toks = _t(rng.integers(1, cfg.vocab_size, (2, 8)).astype(np.int32))
+    batch = {"tokens": toks, "targets": toks}
+    dense = tconfigs.get_arch("mixtral-8x7b").build(cfg)
+    ep = tconfigs.get_arch("mixtral-8x7b").build(
+        dataclasses.replace(cfg, moe_ep=True))
+    params = dense.init(0, device="cpu")
+    loss, _ = ep.loss(params, batch)
+    assert np.isfinite(float(loss))
+    assert float(loss) == float(dense.loss(params, batch)[0])
 
 
 def test_moe_router_balance_aux(rng):
