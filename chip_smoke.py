@@ -182,7 +182,22 @@ in phases that each exit non-zero on failure:
    pairs as on the host, outputs within 1e-5. Then ``python -m
    repro_torch.launch.train`` on the card stopped by ``--fail-at-step
    5`` and run again: the resumed params == an uninterrupted run's
-   (atol 1e-5).
+   (atol 1e-5);
+15. trains across ranks (``scripts/torch_lm_ranks_calls.py``): one NCCL
+   process a card, ``min(4, visible cards)`` of them (4, 2 or 1), each
+   running ``LMHarness.make_train_step`` on its shards of a rank mesh
+   (FSDP over ``data``, tensor parallelism over ``model``, the expert
+   all-to-all): a float32 granite-3-2b 2-layer cut and a mixtral-8x7b MoE
+   layer (``moe_ep``) at full width on ``(2, 2)`` and ``(4, 1)`` (two
+   cards: ``(2, 1)``, ``(1, 2)``; one: ``(1, 1)``), each held to the
+   one-card logical step of the same mesh (loss rel 1e-5, grad norm 1e-4,
+   Adam's m and v within ``grads_close``, the params within Adam's
+   first-step bound; on one rank bit for bit); with four cards
+   granite-3-2b whole in bf16 on ``(4, 1)``, B 8 x S 512, ``micro_rows``
+   2, 4 steps: per step loss, grad norm, wall and CUDA-event ms and the
+   NCCL bytes by kind, each rank's memory peak; the loss must fall. With
+   fewer cards a line names the runs that need four. Any rank's failure
+   fails the run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -3761,6 +3776,78 @@ def phase_lm_train(np, torch, card) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 15: the LM train step across ranks
+# --------------------------------------------------------------------------
+def phase_lm_ranks(np, torch, card) -> dict:
+    """``scripts/torch_lm_ranks_calls.py`` on the visible cards (at most
+    four): its ranks' float32 cases against the one-card logical step
+    and, with four, granite-3-2b whole on ``(4, 1)``."""
+    import os
+
+    n_cards = torch.cuda.device_count()
+    world = 4 if n_cards >= 4 else (2 if n_cards >= 2 else 1)
+    if world < 4:
+        log(f"phase 15 on {n_cards} card(s): the (2, 2) and (4, 1) rank "
+            f"steps and granite-3-2b whole on (4, 1) need four cards; "
+            f"this run holds the NCCL path on {world} rank(s)")
+    free_card(torch)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = pathlib.Path(d) / "ranks.json"
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "torch_lm_ranks_calls.py"),
+             "--world", str(world), "--out", str(out)], env=env,
+            capture_output=True, text=True, timeout=1000)
+        check(proc.returncode == 0 and out.is_file(),
+              f"the ranks failed: rc {proc.returncode}\n"
+              f"{proc.stderr[-3000:]}")
+        res = json.loads(out.read_text())
+    res["phase_s"] = time.perf_counter() - t0
+    for c in res["cases"]:
+        mesh = f"{c['mesh'][0]} x {c['mesh'][1]}"
+        if world == 1:
+            check(c["bit_equal"], f"{c['what']} on one NCCL rank is not "
+                  f"the one-process step bit for bit")
+        else:
+            check(c["loss_rel"] <= LOSS_RTOL and c["norm_rel"] <= GRAD_RTOL
+                  and max(c["m_worst"], c["v_worst"], c["new_worst"])
+                  <= 1.0, f"{c['what']} on {mesh} ranks vs the one-card "
+                  f"logical mesh: {c}")
+        log(f"ranks {c['what']} on {mesh}: loss {c['loss']:.6f} (one card "
+            f"{c['ref_loss']:.6f}, rel {c['loss_rel']:.2e}), grad norm rel "
+            f"{c['norm_rel']:.2e}, m {c['m_worst']:.4f} / v "
+            f"{c['v_worst']:.4f} x tol, params {c['new_worst']:.4f} x the "
+            f"first-step bound, bit-equal {c['bit_equal']}; step "
+            f"{c['wall_ms']:.1f} ms, NCCL bytes {c['nccl_bytes']} ({card})")
+    w = res["whole"]
+    if w is not None:
+        check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+                  for s in w["steps"]), f"non-finite whole steps: {w}")
+        check(w["first_batch_after"] < w["steps"][0]["loss"],
+              f"the loss did not fall across ranks: "
+              f"{w['steps'][0]['loss']:.4f} -> {w['first_batch_after']:.4f}")
+        for i, s in enumerate(w["steps"]):
+            log(f"ranks {LM_ARCH} whole (bf16) on 4 x 1, step {i}: loss "
+                f"{s['loss']:.4f}, grad norm {s['grad_norm']:.4f}, wall "
+                f"{s['wall_ms']:.1f} ms, {s['event_ms']:.1f} ms between "
+                f"CUDA events, NCCL bytes {s['nccl_bytes']} ({card})")
+        log(f"ranks {LM_ARCH} whole: {w['n_micro']} microbatch(es) a rank, "
+            f"init {w['init_s']:.2f} s (peaks "
+            + ", ".join(f"{b / 2**30:.2f}" for b in w["init_peak_bytes"])
+            + " GiB a rank), step peaks "
+            + ", ".join(f"{b / 2**30:.2f}" for b in w["peak_bytes"])
+            + " GiB a rank, param shards "
+            + ", ".join(f"{b / 2**30:.2f}" for b in w["param_shard_bytes"])
+            + f" GiB; rank 0 busy {w['busy_ms']:.1f} ms in a profiled step "
+            f"({w['nccl_busy_ms']:.1f} ms of it in NCCL kernels); the first "
+            f"batch's loss {w['steps'][0]['loss']:.4f} -> "
+            f"{w['first_batch_after']:.4f} ({card})")
+    log(f"phase 15: {res['world']} rank(s), {res['phase_s']:.1f} s ({card})")
+    return res
+
+
+# --------------------------------------------------------------------------
 def main() -> None:
     import argparse
 
@@ -3878,6 +3965,9 @@ def main() -> None:
 
     log("phase 14: LM training on the card")
     phase_lm_train(np, torch, card)
+
+    log("phase 15: the LM train step across ranks, one process a card")
+    phase_lm_ranks(np, torch, card)
     check_no_jax()
 
     print(card, flush=True)  # name, power limit as nvidia-smi gives them

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import _host, _restore
+from repro_torch.distributed.partition import assemble, local_shard
 from repro_torch.core import cerebra_h
 from repro_torch.core.fixedpoint import FixedPointFormat, nearest_shift_decay
 from repro_torch.core.lif import LIFParams
@@ -23,10 +24,11 @@ from repro_torch.core.mapping import (
 )
 from repro_torch.core.network import SNNetwork
 from repro_torch.events.aer import AERStream
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map, unflatten
 
 __all__ = ["adam_state", "aer_stream", "carry", "geometry", "lif_params",
-           "lm_params", "network", "program", "snn_params"]
+           "lm_params", "lm_params_of_ranks", "lm_rank_params", "network",
+           "program", "snn_params"]
 
 
 def lif_params(*, decay_rate: float, threshold: float, reset_mode: str,
@@ -132,3 +134,26 @@ def lm_params(tree, device="cpu") -> dict:
     ``device``. Leaves go through the checkpoint's codec, which restores
     the dtypes numpy lacks from a same-width integer view."""
     return tree_map(lambda a: _restore(*_host(a)).to(device), tree)
+
+
+def lm_rank_params(tree, shardings, rank: int, device="cpu") -> dict:
+    """The per-rank form of :func:`lm_params`: rank ``rank``'s shards of
+    a numpy LM tree (JAX's layout) under ``shardings`` (the same tree of
+    :class:`repro_torch.distributed.partition.Sharding`, their mesh the
+    ranks'), each a tensor of its dtype on ``device``."""
+    return tree_map(lambda a, sh: _restore(*_host(np.ascontiguousarray(
+        local_shard(np.asarray(a), sh, rank)))).to(device),
+        tree, shardings)
+
+
+def lm_params_of_ranks(trees, shardings) -> dict:
+    """The inverse of :func:`lm_rank_params`: ``trees[r]``, rank ``r``'s
+    shards, put together into the full tree (host tensors; numpy where
+    the shards are numpy)."""
+    flat = [leaves(t) for t in trees]
+    out = []
+    for i, sh in enumerate(leaves(shardings)):
+        parts = [x.detach().cpu() if isinstance(x, torch.Tensor) else x
+                 for x in (f[i] for f in flat)]
+        out.append(assemble(parts, sh))
+    return unflatten(trees[0], out)

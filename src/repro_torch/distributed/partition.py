@@ -20,9 +20,19 @@ and :func:`cache_partition` return trees of :class:`Sharding` (a mesh
 and a spec tuple), the twin's ``NamedSharding``s. The activation
 constraints (:func:`activation_sharding`, :func:`constrain_batch`,
 :func:`constrain_seq`) read the context as the twin's do and return
-their input unchanged: the LM runs its logical mesh on one device
+their input unchanged: a logical mesh runs on one device
 (:func:`repro_torch.launch.mesh.single_device`), where a layout
-constraint has nothing to move.
+constraint has nothing to move, and in the rank step (one process a
+device, :mod:`repro_torch.distributed.process_group`) activations are
+local by construction.
+
+For the rank step, :func:`shard_shape` is the twin's
+``NamedSharding.shard_shape``, :func:`local_shard` cuts a rank's shard
+from a full tensor and :func:`assemble` puts the ranks' shards back
+together; :func:`rank_plan` sets the context the LM's layers read
+(:func:`current_rank_plan`): the process group and the spec of every
+param leaf, from which a layer gathers its ``embed -> data`` shards
+(:meth:`RankPlan.fsdp`).
 """
 
 from __future__ import annotations
@@ -36,9 +46,12 @@ import numpy as np
 
 from repro_torch.tree import flatten_with_paths, tree_map, unflatten
 
-__all__ = ["PartitionRules", "Sharding", "activation_sharding",
-           "batch_partition", "cache_partition", "constrain_batch",
-           "constrain_seq", "opt_partition", "params_partition", "spec_for"]
+__all__ = ["PartitionRules", "RankPlan", "Sharding", "activation_sharding",
+           "assemble", "batch_partition", "cache_partition",
+           "constrain_batch", "constrain_seq", "current_rank_plan",
+           "entry_axes", "layer_shardings", "local_shard", "mesh_coords",
+           "opt_partition", "params_partition", "rank_plan", "shard_blocks",
+           "shard_shape", "spec_for"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,3 +268,144 @@ def cache_partition(cache_shapes, mesh, rules: PartitionRules):
 
     return unflatten(cache_shapes, [one(p, leaf) for p, leaf in
                                     flatten_with_paths(cache_shapes)])
+
+
+# --------------------------------------------------------------------------
+# Shards of a rank (the twin's NamedSharding.shard_shape and the cut)
+# --------------------------------------------------------------------------
+
+def entry_axes(entry) -> tuple:
+    """The mesh axes of one spec entry (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard_shape(sharding: Sharding, shape) -> tuple:
+    """The local shape of a ``shape`` array under ``sharding``, as
+    ``NamedSharding.shard_shape``: each dim divided by the size of its
+    mesh axes (a dim they do not divide raises)."""
+    out = [int(d) for d in shape]
+    for i, entry in enumerate(sharding.spec):
+        n = _axis_size(sharding.mesh, entry_axes(entry) or None)
+        if out[i] % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                             f"over {entry} ({n})")
+        out[i] //= n
+    return tuple(out)
+
+
+def mesh_coords(axis_names, sizes, rank: int) -> dict:
+    """Axis name -> index of ``rank`` on an ``axis_names`` x ``sizes``
+    mesh (row-major, as ``LMMesh.devices`` lays the ranks out)."""
+    return dict(zip(axis_names,
+                    (int(i) for i in np.unravel_index(rank, sizes))))
+
+
+def shard_blocks(sharding: Sharding, ndim: int, rank: int) -> list:
+    """Per dim, ``(block index, block count)`` of ``rank``'s shard: a dim
+    over several mesh axes counts them row-major, the first major."""
+    coords = mesh_coords(sharding.mesh.axis_names, sharding.mesh.sizes,
+                         rank)
+    out = []
+    for i in range(ndim):
+        axes = entry_axes(sharding.spec[i] if i < len(sharding.spec)
+                           else None)
+        idx, n = 0, 1
+        for ax in axes:
+            size = sharding.mesh.shape[ax]
+            idx, n = idx * size + coords[ax], n * size
+        out.append((idx, n))
+    return out
+
+
+def local_shard(x, sharding: Sharding, rank: int):
+    """``rank``'s shard of the full array ``x`` (numpy or torch) under
+    ``sharding``: a view of ``x``."""
+    index = []
+    for d, (i, n) in zip(x.shape, shard_blocks(sharding, x.ndim, rank)):
+        s = d // n
+        index.append(slice(i * s, (i + 1) * s))
+    return x[tuple(index)]
+
+
+def assemble(shards, sharding: Sharding):
+    """The full array from ``shards[r]``, rank ``r``'s local shard under
+    ``sharding`` for every rank of its mesh: the inverse of
+    :func:`local_shard` (replicas write the same block)."""
+    first = shards[0]
+    blocks = shard_blocks(sharding, first.ndim, 0)
+    full = tuple(d * n for d, (_, n) in zip(first.shape, blocks))
+    if isinstance(first, np.ndarray):
+        out = np.empty(full, first.dtype)
+    else:
+        out = first.new_empty(full)
+    for r, x in enumerate(shards):
+        index = []
+        for d, (i, _) in zip(x.shape, shard_blocks(sharding, x.ndim, r)):
+            index.append(slice(i * d, (i + 1) * d))
+        out[tuple(index)] = x
+    return out
+
+
+def layer_shardings(shardings):
+    """The shardings of one layer of a tree of layer-stacked leaves: each
+    spec without its leading ``layers`` entry (which the rules never
+    shard)."""
+    return tree_map(lambda s: Sharding(s.mesh, s.spec[1:]), shardings)
+
+
+# --------------------------------------------------------------------------
+# The rank step's context
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RankPlan:
+    """What a layer of the rank step reads: the process group (a
+    :class:`repro_torch.distributed.process_group.RankGroups`) and
+    ``shardings``, the :class:`Sharding` of every param leaf (the
+    params' tree)."""
+
+    groups: Any
+    shardings: Any
+
+    def layer_shardings(self, key: str = "layers"):
+        """The shardings of one layer of the stacked ``params[key]``."""
+        return layer_shardings(self.shardings[key])
+
+    @property
+    def dp(self) -> int:
+        return self.groups.size("data")
+
+    def fsdp(self, tree, shardings):
+        """``tree``'s leaves with their ``data``-sharded dims gathered
+        (FSDP): the gather's backward reduce-scatters the gradient to the
+        shard. ``shardings`` are the leaves' (a layer's from
+        :meth:`layer_shardings`)."""
+        from repro_torch.distributed import process_group as pg
+
+        def one(x, sh):
+            for dim, entry in enumerate(sh.spec):
+                if "data" in entry_axes(entry):
+                    x = pg.gather(x, dim, self.groups, "data")
+            return x
+
+        return tree_map(one, tree, shardings)
+
+
+_RANK_PLAN: "contextvars.ContextVar[RankPlan | None]" = (
+    contextvars.ContextVar("repro_torch_rank_plan", default=None))
+
+
+@contextlib.contextmanager
+def rank_plan(plan: RankPlan | None):
+    tok = _RANK_PLAN.set(plan)
+    try:
+        yield plan
+    finally:
+        _RANK_PLAN.reset(tok)
+
+
+def current_rank_plan() -> RankPlan | None:
+    """The rank step's plan, or None outside it (one process)."""
+    return _RANK_PLAN.get()

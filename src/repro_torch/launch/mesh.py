@@ -19,13 +19,22 @@ spec_for` and ``_axis_size`` read it unchanged.
     ``with mesh:``, which ``moe_forward_ep`` and ``constrain_seq`` read
     through ``pxla.thread_resources``; :func:`current_mesh` reads it.
 
-The LM steps run a mesh of one physical device, whatever its logical
-shape (:func:`single_device`). A mesh over several distinct cards raises:
-executing the LM across cards (FSDP gathers over ``embed -> data``,
-Megatron TP over ``model``, the expert exchange between cards) is ROADMAP
-Queue 1 item 12e. The twin's program has GSPMD's global semantics (MoE
-capacity over the whole microbatch, not a shard's), which per-shard data
-parallelism would not keep, so no cheaper stand-in is offered.
+A mesh runs in one of two ways:
+
+  * a *logical* mesh of one physical device, whatever its logical shape
+    (:func:`single_device`): every shard in one process;
+  * a *rank* mesh (:func:`make_rank_mesh`): one process a device on a
+    process group (:mod:`repro_torch.distributed.process_group`), its
+    ``devices`` the
+    ranks' devices and ``ranks`` this rank's groups. The train step runs
+    on it (FSDP gathers over ``embed -> data``, Megatron TP over
+    ``model``, the expert exchange between ranks; ROADMAP item 12e);
+    prefill and decode across ranks are item 12e-ii and raise.
+
+A mesh over several distinct devices outside a process group raises: the
+twin's program has GSPMD's global semantics (MoE capacity over the whole
+microbatch, not a shard's), which per-shard data parallelism would not
+keep, so no cheaper stand-in is offered.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -40,7 +50,13 @@ import torch
 from repro_torch.device import resolve_device
 
 __all__ = ["LMMesh", "current_mesh", "make_host_mesh",
-           "make_production_mesh", "single_device", "use_mesh"]
+           "make_production_mesh", "make_rank_mesh", "single_device",
+           "use_mesh"]
+
+# how to run a mesh over several devices, for the errors that refuse one
+LAUNCH_HINT = ("launch one process a device on a process group: "
+               "`python -m repro_torch.launch.train --ranks --mesh DxM` "
+               "(ROADMAP item 12e)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +68,8 @@ class LMMesh:
     axis_names: tuple
     sizes: tuple
     devices: tuple | None = None   # flat, row-major over ``sizes``
+    # this rank's groups (a process_group.RankGroups) on a rank mesh
+    ranks: Any = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         names, sizes = tuple(self.axis_names), tuple(int(s)
@@ -86,6 +104,11 @@ class LMMesh:
         return self.devices is None
 
     @property
+    def is_ranks(self) -> bool:
+        """One process a device, on a process group."""
+        return self.ranks is not None
+
+    @property
     def physical_devices(self) -> tuple:
         """The distinct devices behind the grid, in grid order."""
         return tuple(dict.fromkeys(self.devices or ()))
@@ -118,21 +141,50 @@ def make_host_mesh(data: int | None = None, model: int = 1,
                   tuple(devices[i % len(devices)] for i in range(n)))
 
 
+def make_rank_mesh(groups) -> LMMesh:
+    """The mesh of a process group's ranks (``groups``: this rank's
+    :class:`repro_torch.distributed.process_group.RankGroups`): its
+    ``devices`` are the ranks' devices (``cuda:r`` for rank ``r`` on the
+    cards, ``cpu`` each on the host), row-major."""
+    from repro_torch.distributed.process_group import world_size
+
+    if world_size() != groups.world:
+        raise RuntimeError(
+            f"a rank mesh of {groups.world} needs a process group of as "
+            f"many ranks; {LAUNCH_HINT}")
+    dev = groups.device
+    devices = tuple(torch.device("cuda", r) if dev.type == "cuda" else dev
+                    for r in range(groups.world))
+    return LMMesh(groups.axis_names, groups.sizes, devices, ranks=groups)
+
+
 def single_device(mesh: LMMesh) -> torch.device:
-    """The one physical device a mesh runs on; several distinct devices
-    raise (ROADMAP Queue 1 item 12e), an abstract mesh cannot run."""
+    """The device a mesh's step runs on here: the one physical device of
+    a logical mesh, or this rank's device on a rank mesh. Several
+    distinct devices outside a process group raise, naming how to launch;
+    an abstract mesh cannot run."""
     if mesh.abstract:
         raise ValueError("an abstract mesh has no devices to run on; "
                          "it gives specs only")
+    if mesh.is_ranks:
+        return mesh.ranks.device
     devs = mesh.physical_devices
     if len(devs) > 1:
         raise NotImplementedError(
-            f"LM execution across several devices "
-            f"({', '.join(map(str, devs))}) is not ported yet: ROADMAP "
-            f"Queue 1 item 12e (FSDP gathers, tensor parallelism and the "
-            f"expert exchange between cards); a logical mesh of one device "
-            f"runs")
+            f"a mesh over several devices ({', '.join(map(str, devs))}) "
+            f"runs one process a device, not in this one: {LAUNCH_HINT}; "
+            f"a logical mesh of one device runs in one process")
     return devs[0]
+
+
+def refuse_ranks(mesh, what: str) -> None:
+    """Raise for ``what`` (prefill, decode, a family) on a rank mesh:
+    ROADMAP item 12e-ii."""
+    if mesh is not None and getattr(mesh, "is_ranks", False):
+        raise NotImplementedError(
+            f"{what} across ranks is not ported yet: ROADMAP Queue 1 item "
+            f"12e-ii; the train step of the dense GQA and MoE families "
+            f"runs across ranks")
 
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar(

@@ -27,8 +27,24 @@ remat=True)`` accumulate in float32, are averaged, clipped to global
 norm 1 and applied by AdamW. The mesh decides the numbers, not only the
 layout: ``n_micro``, the split and, with ``moe_ep``, each data row's
 local MoE capacity follow it. A step runs a logical mesh on one device
-(:func:`repro_torch.launch.mesh.single_device`); a mesh over several
-cards raises, ROADMAP Queue 1 item 12e.
+(:func:`repro_torch.launch.mesh.single_device`), or a rank mesh
+(:func:`repro_torch.launch.mesh.make_rank_mesh`, one process a device):
+
+  * each data rank takes its rows of the strided split (a contiguous
+    block of ``B / n_data`` rows, ``n_micro`` microbatches of it);
+  * the params, Adam's moments and the float32 gradient accumulator are
+    this rank's shards, never whole: a layer's ``data`` shards are
+    gathered inside its remat region and their gradient reduce-scattered
+    back by the gather's backward, each microbatch; the gradient of a
+    leaf not sharded over ``data`` is all-reduced over it once a step;
+  * the loss is the sum over data ranks of their parts (sums over the
+    microbatch's token count, not a mean of means), and the clip's norm
+    counts each leaf's shard once among its replicas;
+  * it returns this rank's ``params`` and ``opt_state`` and the global
+    ``loss`` and ``grad_norm``.
+
+Prefill and decode across ranks, and the train step of the families
+other than the dense GQA and MoE ones, are ROADMAP item 12e-ii and raise.
 """
 
 from __future__ import annotations
@@ -42,7 +58,8 @@ from repro_torch import configs
 from repro_torch.configs.shapes import Shape
 from repro_torch.core import prng
 from repro_torch.distributed import partition as part
-from repro_torch.launch.mesh import single_device, use_mesh
+from repro_torch.distributed import process_group as pg
+from repro_torch.launch.mesh import refuse_ranks, single_device, use_mesh
 from repro_torch.training import optimizers
 from repro_torch.tree import leaves, unflatten
 
@@ -147,7 +164,10 @@ class LMHarness:
     def make_train_step(self, shape: Shape, mesh):
         """``train_step(params, opt_state, batch) -> (params, opt_state,
         {"loss", "grad_norm"})`` on ``mesh``'s device; the batch's leaves
-        (numpy or tensors) move there."""
+        (numpy or tensors) move there. On a rank mesh the params and the
+        state are this rank's shards and the batch is the global one."""
+        if mesh.is_ranks:
+            return self._make_rank_train_step(shape, mesh)
         device = single_device(mesh)
         n_micro = self.n_microbatches(shape, mesh)
         model, opt = self.model, self.opt
@@ -161,22 +181,7 @@ class LMHarness:
                 xs = {k: _strided_split(torch.as_tensor(v, device=device),
                                         n_micro, n_shards)
                       for k, v in batch.items()}
-                flat = leaves(params)
-                gsum = [torch.zeros_like(p, dtype=torch.float32)
-                        for p in flat]
-                lsum = torch.zeros((), dtype=torch.float32, device=device)
-                for m in range(n_micro):
-                    live = [p.detach().requires_grad_() for p in flat]
-                    loss, _ = model.loss(unflatten(params, live),
-                                         {k: v[m] for k, v in xs.items()},
-                                         remat=True)
-                    grads = torch.autograd.grad(loss, live,
-                                                allow_unused=True)
-                    for acc, g in zip(gsum, grads):
-                        if g is not None:  # an unused leaf's is zero
-                            acc.add_(g.to(torch.float32))
-                    lsum = lsum + loss.detach()
-                    del live, loss, grads
+                gsum, lsum = _accumulate(model, params, xs, n_micro, device)
                 with torch.no_grad():
                     n = torch.full((), float(n_micro), dtype=torch.float32,
                                    device=device)
@@ -191,11 +196,88 @@ class LMHarness:
 
         return train_step
 
+    def _refuse_across_ranks(self, mesh) -> None:
+        """The families and levers the rank step does not run yet
+        (ROADMAP Queue 1 item 12e-ii), in that item's order."""
+        cfg = self.cfg
+        what = None
+        if cfg.mla is not None:
+            what = "MLA (minicpm3)"
+        elif cfg.global_every or cfg.qk_norm or cfg.split_cache:
+            what = "gemma3's local:global mix"
+        elif cfg.frontend != "tokens" or cfg.mrope:
+            what = "qwen2-vl's embeddings frontend"
+        elif cfg.block_kind == "mamba2":
+            what = "zamba2 (Mamba2)"
+        elif cfg.block_kind == "rwkv6":
+            what = "rwkv6"
+        elif self.is_whisper:
+            what = "whisper"
+        elif "pod" in mesh.axis_names:
+            what = "a mesh with a pod axis"
+        elif cfg.moe is not None and self.expert_parallel:
+            what = "the expert_parallel lever"
+        if what is not None:
+            refuse_ranks(mesh, f"the train step of {what}")
+
+    def _make_rank_train_step(self, shape: Shape, mesh):
+        self._refuse_across_ranks(mesh)
+        groups = mesh.ranks
+        p_shard = part.params_partition(self.param_shapes(), mesh,
+                                        self.rules(mesh))
+        plan = part.RankPlan(groups, p_shard)
+        n_micro = self.n_microbatches(shape, mesh)
+        n_dp, row = groups.size("data"), groups.index("data")
+        B = shape.global_batch
+        if B % (n_dp * n_micro):
+            raise ValueError(f"batch {B} does not split into {n_micro} "
+                             f"microbatches on each of {n_dp} data ranks")
+        rows = B // n_dp
+        device = groups.device
+        model, opt = self.model, self.opt
+        used = [{a for e in sh.spec for a in part.entry_axes(e)}
+                for sh in leaves(p_shard)]
+        # a leaf not sharded over data has a partial gradient on each
+        # data rank; a leaf's norm counts on one rank of its replicas
+        partial = ["data" not in u for u in used]
+        owned = [all(groups.index(a) == 0 for a in groups.axis_names
+                     if a not in u) for u in used]
+
+        def world_sum(t):
+            return pg.all_reduce_(t, groups, None)
+
+        def train_step(params, opt_state, batch):
+            with use_mesh(mesh), part.rank_plan(plan), (
+                    part.activation_sharding(("data",), B, mesh)):
+                xs = {k: _strided_split(torch.as_tensor(v)[
+                    row * rows:(row + 1) * rows].to(device), n_micro, 1)
+                      for k, v in batch.items()}
+                gsum, lsum = _accumulate(model, params, xs, n_micro, device)
+                with torch.no_grad():
+                    for acc, part_ in zip(gsum, partial):
+                        if part_:
+                            pg.all_reduce_(acc, groups, "data")
+                    pg.all_reduce_(lsum, groups, "data")
+                    n = torch.full((), float(n_micro), dtype=torch.float32,
+                                   device=device)
+                    grads = unflatten(params, [g.div_(n) for g in gsum])
+                    del gsum
+                    grads, gnorm = optimizers.clip_by_global_norm(
+                        grads, 1.0, owned=owned, all_reduce=world_sum)
+                    updates, opt_state = opt.update(grads, opt_state,
+                                                    params)
+                    del grads
+                    params = optimizers.apply_updates(params, updates)
+            return params, opt_state, {"loss": lsum / n, "grad_norm": gnorm}
+
+        return train_step
+
     def make_prefill_step(self, shape: Shape, mesh=None, *, device=None):
         """``prefill(params, batch) -> (last logits, cache)`` with a fresh
         cache of ``shape`` on ``device`` (default: ``mesh``'s device, or
         ``"cuda"`` without a mesh), under ``mesh``'s activation context
         when one is given."""
+        refuse_ranks(mesh, "prefill")
         model = self.model
         if device is None:
             device = "cuda" if mesh is None else single_device(mesh)
@@ -211,9 +293,11 @@ class LMHarness:
 
         return prefill
 
-    def make_decode_step(self, shape: Shape):
+    def make_decode_step(self, shape: Shape, mesh=None):
         """``decode(params, cache, token_in, pos) -> (next token (B, 1)
-        int32, cache)``: one greedy token."""
+        int32, cache)``: one greedy token (a rank mesh raises, item
+        12e-ii)."""
+        refuse_ranks(mesh, "decode")
         model = self.model
         cfg = self.cfg
 
@@ -279,8 +363,28 @@ class LMHarness:
         if kind == "prefill":
             return self.make_prefill_step(shape, mesh)
         if kind == "decode":
-            return self.make_decode_step(shape)
+            return self.make_decode_step(shape, mesh)
         raise ValueError(kind)
+
+
+def _accumulate(model, params, xs, n_micro: int, device):
+    """``(gsum, lsum)``: the float32 sums over the microbatches ``xs``
+    (each leaf split on its leading axis) of ``loss(remat=True)``'s
+    gradient, a list in ``params``' flatten order, and of the loss."""
+    flat = leaves(params)
+    gsum = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
+    lsum = torch.zeros((), dtype=torch.float32, device=device)
+    for m in range(n_micro):
+        live = [p.detach().requires_grad_() for p in flat]
+        loss, _ = model.loss(unflatten(params, live),
+                             {k: v[m] for k, v in xs.items()}, remat=True)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        for acc, g in zip(gsum, grads):
+            if g is not None:  # an unused leaf's is zero
+                acc.add_(g.to(torch.float32))
+        lsum = lsum + loss.detach()
+        del live, loss, grads
+    return gsum, lsum
 
 
 def _strided_split(x, n_micro: int, n_shards: int):

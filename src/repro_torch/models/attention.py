@@ -26,15 +26,22 @@ With ``seq_parallel_attn`` (the twin's context-parallel lever) a
 cache-free call of S > 1 scores the whole sequence in one block under the
 sequence and batch constraints of :mod:`repro_torch.distributed.
 partition`, where the twin shards the queries over ``model``.
+
+:func:`gqa_forward_tp` is the train step's attention across ``model``
+ranks (Megatron tensor parallelism): ``wq`` and the K/V heads its query
+heads read column-parallel, ``wo`` row-parallel with one all-reduce.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.core import prng
 from repro_torch.device import ieee_fp32_matmul
+from repro_torch.distributed import process_group as pg
 from repro_torch.distributed.partition import constrain_batch, constrain_seq
 from repro_torch.models.common import (
     TransformerConfig,
@@ -45,7 +52,8 @@ from repro_torch.models.common import (
     rms_norm,
 )
 
-__all__ = ["init_gqa", "gqa_forward", "init_gqa_cache", "sdpa",
+__all__ = ["init_gqa", "gqa_forward", "gqa_forward_tp", "init_gqa_cache",
+           "sdpa",
            "init_mla", "mla_forward", "init_mla_cache"]
 
 _NEG_INF = -2.0 ** 30
@@ -273,6 +281,55 @@ def gqa_forward(
     if "bo" in p:
         out = out + p["bo"]
     return out.to(x.dtype), new_cache
+
+
+def gqa_forward_tp(p: dict, x, *, cfg: TransformerConfig, positions,
+                   window: int | None, groups):
+    """Cache-free causal self-attention across the ``model`` ranks of
+    ``groups``: ``p`` holds this rank's ``model`` shards (``data``
+    already gathered). Rank ``c`` of ``M`` runs :func:`gqa_forward` on
+    query heads ``c H/M .. (c+1) H/M - 1`` and the K/V heads they read;
+    its ``wo`` rows give a partial output, summed by one all-reduce
+    (:func:`repro_torch.distributed.process_group.reduce_out`). A K/V
+    shard that is not whole heads (MQA, or fewer K/V heads than ranks) is
+    gathered, and a replicated one sliced, the gradient summed over the
+    ranks that read it. Unsharded weights (``attn_tp`` off, or widths the
+    axis does not divide) run the whole block on every rank. Returns
+    (out, None)."""
+    hd = cfg.resolved_head_dim
+    H, KV, g = cfg.n_heads, cfg.n_kv_heads, cfg.q_group
+    if p["wq"].shape[1] == H * hd:
+        return gqa_forward(p, x, cfg=cfg, positions=positions, window=window)
+    M = groups.size("model")
+    if H % M or "bq" in p or cfg.qk_norm or cfg.mrope:
+        raise NotImplementedError(
+            f"attention of {H} heads over {M} model ranks (or with biases, "
+            f"q/k norms or M-RoPE) across ranks: ROADMAP Queue 1 item "
+            f"12e-ii")
+    hl = H // M
+    lo = groups.index("model") * hl
+    kv_lo, kv_hi = lo // g, (lo + hl - 1) // g + 1
+    kvl = kv_hi - kv_lo
+    if hl % kvl:
+        raise NotImplementedError(
+            f"{hl} query heads a rank over {kvl} K/V heads: ROADMAP Queue 1 "
+            f"item 12e-ii")
+
+    def kv_weight(w):
+        if KV % M == 0 and w.shape[1] == (KV // M) * hd:
+            return w                       # whole heads: this rank's own
+        if w.shape[1] == KV * hd:          # replicated: read a slice
+            w = pg.copy_in(w, groups)
+        else:                              # a shard of partial heads
+            w = pg.gather(w, 1, groups, "model")
+        return w[:, kv_lo * hd:kv_hi * hd]
+
+    local = dict(p, wk=kv_weight(p["wk"]), wv=kv_weight(p["wv"]))
+    out, _ = gqa_forward(
+        local, pg.copy_in(x, groups), positions=positions, window=window,
+        cfg=dataclasses.replace(cfg, n_heads=hl, n_kv_heads=kvl,
+                                head_dim=hd))
+    return pg.reduce_out(out, groups), None
 
 
 # --------------------------------------------------------------------------

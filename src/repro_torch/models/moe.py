@@ -18,6 +18,19 @@ local capacity, the all-to-all is a regrouping of the rows' send
 buffers, each data row's ``E / n_data`` experts run on what they receive
 (the ``model`` axis's partial products summed as one unsplit product),
 and the results go home the same way.
+
+:func:`moe_forward_rank` is the train step's MoE across ranks (one
+process a device): :func:`moe_forward` with the rank's own hooks for the
+experts and the shared expert. Without ``moe_ep`` it keeps GSPMD's
+global semantics: the microbatch is gathered over ``data`` before
+routing, so capacity counts every rank's tokens, each data rank runs the
+whole microbatch's dispatch and experts and keeps its own rows (the
+redundant work is the data axis's size over; the shared expert runs on
+the rank's own tokens only). With ``moe_ep`` each data row routes its
+own tokens, an all-to-all over ``data`` carries the expert buffers out
+and the results back, and the experts' weights reach their row by one
+all-to-all of their ``embed`` shards. The experts' ``d_ff`` runs
+tensor-parallel over ``model`` (one all-reduce).
 """
 
 from __future__ import annotations
@@ -27,6 +40,8 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.device import ieee_fp32_matmul
+from repro_torch.distributed import process_group as pg
+from repro_torch.distributed.partition import entry_axes
 from repro_torch.models.common import (
     MoEConfig,
     TransformerConfig,
@@ -35,8 +50,8 @@ from repro_torch.models.common import (
     silu,
 )
 
-__all__ = ["init_moe", "moe_forward", "moe_forward_ep", "route",
-           "capacity", "dispatch"]
+__all__ = ["init_moe", "moe_forward", "moe_forward_ep", "moe_forward_rank",
+           "route", "capacity", "dispatch"]
 
 
 def init_moe(key, cfg: TransformerConfig, *, device) -> dict:
@@ -103,29 +118,57 @@ def dispatch(gate_idx, E: int, C: int):
     return order, se, st, keep, slot
 
 
+def _aux(probs, gate_idx, m: MoEConfig):
+    """The load-balance aux loss (Switch): ``E * sum_e f_e * P_e`` over
+    the rows of ``probs`` (T, E) and their top-k ``gate_idx``."""
+    E, k = m.n_experts, m.top_k
+    T, dev = probs.shape[0], probs.device
+    me = torch.mean(probs, dim=0)
+    ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
+        0, gate_idx.reshape(-1),
+        torch.ones((T * k,), dtype=torch.float32, device=dev)) / (T * k)
+    return m.router_aux_weight * E * torch.sum(me * ce)
+
+
+def _experts(p: dict, eb, cfg: TransformerConfig):
+    """The experts of ``eb`` (E, rows, d) as one batched product over
+    experts: (E, rows, d) in ``eb``'s dtype."""
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        act = silu if cfg.mlp_kind == "swiglu" else gelu
+        h = act(torch.bmm(eb, p["w_gate"].to(eb.dtype)))
+        h = h * torch.bmm(eb, p["w_up"].to(eb.dtype))
+    else:
+        h = gelu(torch.bmm(eb, p["w_up"].to(eb.dtype)))
+    return torch.bmm(h, p["w_down"].to(eb.dtype))
+
+
+def _shared(p: dict, xf):
+    """llama4's always-on shared expert of ``xf`` (T, d)."""
+    hs = silu(xf @ p["shared_w_gate"].to(xf.dtype)) * (
+        xf @ p["shared_w_up"].to(xf.dtype))
+    return hs @ p["shared_w_down"].to(xf.dtype)
+
+
 def moe_forward(p: dict, x, cfg: TransformerConfig, *,
-                dropless: bool = False):
+                dropless: bool = False, experts=_experts, shared=_shared):
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar float32).
 
     ``dropless=True`` sizes the expert buffers to hold every routed token
     (C = T): the decode path, where T = batch is small. Training and
     prefill keep GShard capacity semantics (C = T k / E x capacity_factor).
+    ``experts(p, eb, cfg)`` runs the (E, C, d) expert buffers and
+    ``shared(p, xf)`` the shared expert of the (T, d) tokens (the rank
+    step's own, across ranks).
     """
     m: MoEConfig = cfg.moe
     B, S, d = x.shape
-    E, k = m.n_experts, m.top_k
+    E = m.n_experts
     T = B * S
     xf = x.reshape(T, d)
     dev = x.device
 
     probs, gate_vals, gate_idx = route(p, xf, m)
-
-    # load-balance aux loss (Switch): E * sum_e f_e * P_e
-    me = torch.mean(probs, dim=0)
-    ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
-        0, gate_idx.reshape(-1),
-        torch.ones((T * k,), dtype=torch.float32, device=dev)) / (T * k)
-    aux = m.router_aux_weight * E * torch.sum(me * ce)
+    aux = _aux(probs, gate_idx, m)
 
     # ---- sort-based capacity dispatch ----
     C = capacity(T, m, dropless)
@@ -140,13 +183,7 @@ def moe_forward(p: dict, x, cfg: TransformerConfig, *,
     eb = buf[:E * C].reshape(E, C, d)
 
     # ---- expert computation (one batched product over experts) ----
-    if cfg.mlp_kind in ("swiglu", "geglu"):
-        act = silu if cfg.mlp_kind == "swiglu" else gelu
-        h = act(torch.bmm(eb, p["w_gate"].to(x.dtype)))
-        h = h * torch.bmm(eb, p["w_up"].to(x.dtype))
-    else:
-        h = gelu(torch.bmm(eb, p["w_up"].to(x.dtype)))
-    y = torch.bmm(h, p["w_down"].to(x.dtype)).reshape(E * C, d)
+    y = experts(p, eb, cfg).reshape(E * C, d)
 
     # ---- combine back to token order ----
     # index_add_ may add a token's contributions in any order (atomics on
@@ -160,9 +197,7 @@ def moe_forward(p: dict, x, cfg: TransformerConfig, *,
         0, st, contrib)
 
     if m.shared_expert:
-        hs = silu(xf @ p["shared_w_gate"].to(x.dtype)) * (
-            xf @ p["shared_w_up"].to(x.dtype))
-        out = out + hs @ p["shared_w_down"].to(x.dtype)
+        out = out + shared(p, xf)
 
     return out.reshape(B, S, d), aux
 
@@ -196,7 +231,7 @@ def moe_forward_ep(p: dict, x, cfg: TransformerConfig, *,
     if not _ep_eligible(cfg, mesh):
         return moe_forward(p, x, cfg, dropless=dropless)
     m: MoEConfig = cfg.moe
-    E, k = m.n_experts, m.top_k
+    E = m.n_experts
     n_ed = mesh.shape["data"]
     n_pod = mesh.shape.get("pod", 1)
     epr = E // n_ed                       # experts per data row
@@ -216,11 +251,7 @@ def moe_forward_ep(p: dict, x, cfg: TransformerConfig, *,
     for r in range(n_pod * n_ed):
         xf = x[r * Bl:(r + 1) * Bl].reshape(T, d)
         probs, gate_vals, gate_idx = route(p, xf, m)
-        me = torch.mean(probs, dim=0)
-        ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
-            0, gate_idx.reshape(-1),
-            torch.ones((T * k,), dtype=torch.float32, device=dev)) / (T * k)
-        aux = m.router_aux_weight * E * torch.sum(me * ce)
+        aux = _aux(probs, gate_idx, m)
         order, se, st, keep, slot = dispatch(gate_idx, E, C)
         sw = gate_vals.reshape(-1)[order]
         send = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
@@ -236,16 +267,7 @@ def moe_forward_ep(p: dict, x, cfg: TransformerConfig, *,
 
     # ---- the experts: row j holds experts j epr .. (j + 1) epr - 1,
     # so expert e of the stacked weights meets expert e's rows ----
-    def experts(eb):
-        if cfg.mlp_kind in ("swiglu", "geglu"):
-            act = silu if cfg.mlp_kind == "swiglu" else gelu
-            h = act(torch.bmm(eb, p["w_gate"].to(x.dtype)))
-            h = h * torch.bmm(eb, p["w_up"].to(x.dtype))
-        else:
-            h = gelu(torch.bmm(eb, p["w_up"].to(x.dtype)))
-        return torch.bmm(h, p["w_down"].to(x.dtype))
-
-    y = torch.stack([experts(eb[i]) for i in range(n_pod)])
+    y = torch.stack([_experts(p, eb[i], cfg) for i in range(n_pod)])
 
     # ---- route back: (pod, dst, epr, src, C, d) -> (pod, src, E C, d) ----
     back = (y.reshape(n_pod, n_ed, epr, n_ed, C, d)
@@ -260,10 +282,109 @@ def moe_forward_ep(p: dict, x, cfg: TransformerConfig, *,
         out = torch.zeros((T, d), dtype=x.dtype, device=dev).index_add_(
             0, st, contrib)
         if m.shared_expert:
-            hs = silu(xf @ p["shared_w_gate"].to(x.dtype)) * (
-                xf @ p["shared_w_up"].to(x.dtype))
-            out = out + hs @ p["shared_w_down"].to(x.dtype)
+            out = out + _shared(p, xf)
         outs.append(out.reshape(Bl, S, d))
         auxs.append(aux)
     aux = torch.mean(torch.stack(auxs[:n_ed]))
     return torch.cat(outs), aux
+
+
+# --------------------------------------------------------------------------
+# Across ranks (the train step, one process a device)
+# --------------------------------------------------------------------------
+
+def _experts_tp(p, eb, cfg, groups):
+    """:func:`_experts` on this rank's ``d_ff`` slice: the buffer enters
+    with :func:`~repro_torch.distributed.process_group.copy_in`, the
+    partial products leave summed over ``model``; whole experts on every
+    rank where ``d_ff`` is not sharded."""
+    if p["w_down"].shape[1] == cfg.d_ff:
+        return _experts(p, eb, cfg)
+    return pg.reduce_out(_experts(p, pg.copy_in(eb, groups), cfg), groups)
+
+
+def _shared_tp(p, xf, cfg, groups):
+    """:func:`_shared` on this rank's tokens, tensor-parallel over
+    ``model`` where its ``d_ff`` is sharded."""
+    if p["shared_w_down"].shape[0] == cfg.d_ff:
+        return _shared(p, xf)
+    return pg.reduce_out(_shared(p, pg.copy_in(xf, groups)), groups)
+
+
+def moe_forward_rank(p: dict, shardings: dict, x, cfg: TransformerConfig,
+                     *, plan):
+    """x: this rank's rows (B_local, S, d) -> (out (B_local, S, d), aux).
+    ``p`` holds this rank's shards of the layer's MoE params and
+    ``shardings`` their :class:`~repro_torch.distributed.partition.
+    Sharding` (``plan``: the rank step's). ``aux`` is the microbatch's
+    (without ``moe_ep``) or this data row's (with it)."""
+    m: MoEConfig = cfg.moe
+    groups = plan.groups
+    spec = shardings["w_gate"].spec
+    if spec and "model" in entry_axes(spec[0]):
+        raise NotImplementedError(
+            "the expert_parallel lever (experts over model) across ranks "
+            "is ROADMAP Queue 1 item 12e-ii")
+    n_ed, n_tp = groups.size("data"), groups.size("model")
+    if cfg.moe_ep and m.n_experts % n_ed == 0 and cfg.d_ff % n_tp == 0:
+        return _moe_ep_rank(p, shardings, x, cfg, plan)
+    p = plan.fsdp(p, shardings)
+    Bl, S = x.shape[0], x.shape[1]
+    lo, Tl = groups.index("data") * Bl * S, Bl * S
+    T = n_ed * Tl
+
+    def shared(p, xf):   # this rank's tokens only, zeros elsewhere
+        own = _shared_tp(p, xf[lo:lo + Tl], cfg, groups)
+        return torch.nn.functional.pad(own, (0, 0, lo, T - lo - Tl))
+
+    out, aux = moe_forward(
+        p, pg.gather(x, 0, groups, "data"), cfg, shared=shared,
+        experts=lambda p, eb, cfg: _experts_tp(p, eb, cfg, groups))
+    j = groups.index("data")
+    return out[j * Bl:(j + 1) * Bl], aux
+
+
+def _expert_rows(w, sh, groups, n_ed: int, epr: int):
+    """This data row's ``epr`` experts of a stacked expert weight (E, ...)
+    whose ``embed`` dim may be sharded over ``data``: one all-to-all
+    trades the ``embed`` shards of every expert for every ``embed`` shard
+    of this row's experts (its backward is the inverse exchange)."""
+    dim = next((i for i, e in enumerate(sh.spec)
+                if "data" in entry_axes(e)), None)
+    j = groups.index("data")
+    if dim is None:
+        return w[j * epr:(j + 1) * epr]
+    recv = pg.all_to_all(w.reshape((n_ed, epr) + tuple(w.shape[1:])),
+                         groups, "data")
+    # (src, epr, ..., embed shard, ...) -> (epr, ..., src x shard, ...)
+    return torch.movedim(recv, 0, dim).flatten(dim, dim + 1)
+
+
+def _moe_ep_rank(p, shardings, x, cfg, plan):
+    """The twin's ``shard_map`` body on this rank: :func:`moe_forward` of
+    its data row's own tokens under a local capacity, the expert buffers
+    carried to their experts' row by one all-to-all over ``data`` and
+    back by another, its ``E / n_data`` experts tensor-parallel over
+    ``model``."""
+    groups = plan.groups
+    n_ed = groups.size("data")
+    epr = cfg.moe.n_experts // n_ed
+    w = {key: _expert_rows(p[key], shardings[key], groups, n_ed, epr)
+         for key in ("w_gate", "w_up", "w_down") if key in p}
+
+    def experts(p, eb, cfg):   # eb: (E, C, d) in expert order
+        E, C, d = eb.shape
+        recv = pg.all_to_all(eb.reshape(n_ed, epr * C, d), groups, "data")
+        eb = (recv.reshape(n_ed, epr, C, d).transpose(0, 1)
+              .reshape(epr, n_ed * C, d))
+        y = _experts_tp(w, eb, cfg, groups)
+        y = (y.reshape(epr, n_ed, C, d).transpose(0, 1)
+             .reshape(n_ed, epr * C, d))
+        return pg.all_to_all(y, groups, "data").reshape(E, C, d)
+
+    def shared(p, xf):
+        sp = {key: p[key] for key in p if key.startswith("shared_")}
+        sp = plan.fsdp(sp, {key: shardings[key] for key in sp})
+        return _shared_tp(sp, xf, cfg, groups)
+
+    return moe_forward(p, x, cfg, experts=experts, shared=shared)

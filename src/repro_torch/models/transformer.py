@@ -24,6 +24,16 @@ matrix products (a selective-checkpoint policy), ``"attn_out"`` keeps the
 attention output (the body split at it, each half checkpointed). With
 ``moe_ep`` the MoE layers run :func:`repro_torch.models.moe.
 moe_forward_ep` over the ambient mesh.
+
+In the rank step (one process a device; :func:`repro_torch.distributed.
+partition.current_rank_plan` is set) ``loss`` takes this rank's shards
+of the params: each layer gathers its ``embed -> data`` shards over
+``data`` just before use (again in the remat recompute, and frees them
+after), its gradient is reduce-scattered back to the shard by the
+gather's backward, attention and the MLP run Megatron tensor
+parallelism over ``model``, the embedding lookup and the cross entropy
+are vocab-parallel, and the loss returned is this rank's part of the
+microbatch's (:meth:`DecoderLM._loss_rank`).
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
+from repro_torch.distributed import partition as part
+from repro_torch.distributed import process_group as pg
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
@@ -51,7 +63,8 @@ from repro_torch.models.common import (
 )
 from repro_torch.tree import leaves, tree_map, unflatten
 
-__all__ = ["DecoderLM", "init_mlp", "mlp_forward", "remat"]
+__all__ = ["DecoderLM", "init_mlp", "mlp_forward", "mlp_forward_tp",
+           "remat"]
 
 # the products "dots" keeps (``jax.checkpoint_policies.dots_saveable``
 # keeps every dot_general); matmul and einsum lower to these
@@ -124,6 +137,20 @@ def mlp_forward(p: dict, x, cfg: TransformerConfig):
     return h
 
 
+def mlp_forward_tp(p: dict, x, cfg: TransformerConfig, groups):
+    """The MLP across ``model`` ranks: ``w_gate`` / ``w_up`` column- and
+    ``w_down`` row-parallel (this rank's ``d_ff`` slice), the partial
+    outputs summed by one all-reduce; a ``d_ff`` the axis does not
+    divide runs whole on every rank."""
+    if p["w_down"].shape[0] == cfg.d_ff:
+        return mlp_forward(p, x, cfg)
+    if "b_down" in p:
+        raise NotImplementedError("a biased MLP across ranks (whisper) is "
+                                  "ROADMAP Queue 1 item 12e-ii")
+    return pg.reduce_out(mlp_forward(p, pg.copy_in(x, groups), cfg),
+                         groups)
+
+
 def _stack_into(n: int, make, cast) -> dict:
     """``n`` trees ``make(i)`` (a layer each, drawn on its own key), cast
     and written into leaves stacked on a new leading axis, one tree alive
@@ -137,6 +164,24 @@ def _stack_into(n: int, make, cast) -> dict:
         tree_map(lambda s, t: s[i].copy_(t), stacked, tree)
         del tree
     return stacked
+
+
+def _cutter(shard):
+    """``cut(key, tree)``: ``tree`` (``params[key]``, or one layer of the
+    stacked ``params["layers"]``) cut to a rank's shards by ``shard =
+    (shardings, rank)``; the tree itself without ``shard``."""
+    if shard is None:
+        return lambda key, tree: tree
+    shardings, rank = shard
+
+    def cut(key, tree):
+        sh = shardings[key]
+        if key == "layers":
+            sh = part.layer_shardings(sh)
+        return tree_map(lambda x, s: part.local_shard(x, s, rank).clone(),
+                        tree, sh)
+
+    return cut
 
 
 def _expanded(cache: dict, lead: tuple) -> dict:
@@ -164,28 +209,35 @@ class DecoderLM:
             raise ValueError(cfg.block_kind)
 
     # ---------------- parameters ----------------
-    def init(self, key, *, device="cuda") -> dict:
+    def init(self, key, *, device="cuda", shard=None) -> dict:
         """The twin's params for ``key`` on ``device`` (``"meta"`` gives the
         shapes and dtypes without drawing): ``split(key, 3)`` into embed,
         layers and unembed; one key per layer; layers stacked on a leading
-        L axis; every leaf cast to ``cfg.dtype`` at the end."""
+        L axis; every leaf cast to ``cfg.dtype`` at the end.
+
+        With ``shard = (shardings, rank)`` (the params' tree of
+        :class:`repro_torch.distributed.partition.Sharding` and a rank of
+        its mesh) each leaf is cut to that rank's shard as it is drawn,
+        the stacked ones layer by layer: the rank holds its shards and at
+        most one full layer (or the embedding table) at a time."""
         cfg = self.cfg
         dev = _device(device)
         k_embed, k_layers, k_out = prng.split(prng.as_key(key), 3)
         cast = lambda t: t.to(cfg.dtype)  # noqa: E731
+        cut = _cutter(shard)
         params: dict = {
-            "embed": {"table": cast(dense_init(
-                k_embed, (cfg.padded_vocab, cfg.d_model), device=dev))},
-            "final_norm": {"scale": cast(torch.zeros((cfg.d_model,),
-                                                     device=dev))},
+            "embed": cut("embed", {"table": cast(dense_init(
+                k_embed, (cfg.padded_vocab, cfg.d_model), device=dev))}),
+            "final_norm": cut("final_norm", {"scale": cast(torch.zeros(
+                (cfg.d_model,), device=dev))}),
         }
         layer_keys = prng.split(k_layers, cfg.n_layers)
         params["layers"] = _stack_into(
-            cfg.n_layers, lambda i: self._layer_init(layer_keys[i], dev),
-            cast)
+            cfg.n_layers, lambda i: cut("layers", self._layer_init(
+                layer_keys[i], dev)), cast)
         if not cfg.tie_embeddings:
-            params["unembed"] = {"table": cast(dense_init(
-                k_out, (cfg.d_model, cfg.padded_vocab), device=dev))}
+            params["unembed"] = cut("unembed", {"table": cast(dense_init(
+                k_out, (cfg.d_model, cfg.padded_vocab), device=dev))})
         return params
 
     def _layer_init(self, key, device) -> dict:
@@ -283,6 +335,9 @@ class DecoderLM:
     # ---------------- core ----------------
     def _embed(self, params, batch_in):
         cfg = self.cfg
+        plan = part.current_rank_plan()
+        if plan is not None:
+            return self._embed_rank(params, batch_in, plan)
         table = params["embed"]["table"]
         if cfg.frontend == "embeddings" and "embeds" in batch_in:
             # the stub modality frontend supplies merged patch / frame
@@ -298,10 +353,12 @@ class DecoderLM:
         return x
 
     def _layer_body(self, x, layer_p, window, cache, write_pos, positions,
-                    mrope_positions=None, mesh=None):
+                    mrope_positions=None, mesh=None, plan=None):
         """One block; cache may be None. Returns (x, new_cache, aux).
-        ``mesh`` is the one ``moe_ep`` routes over (read by the caller,
-        so a recompute in the backward pass sees the forward's)."""
+        ``mesh`` is the one ``moe_ep`` routes over and ``plan`` the rank
+        step's (both read by the caller, so a recompute in the backward
+        pass, which may run on autograd's own thread, sees the
+        forward's)."""
         cfg = self.cfg
         if cfg.block_kind == "mamba2":
             return self._mamba2_body(x, layer_p, cache)
@@ -309,16 +366,21 @@ class DecoderLM:
             return self._rwkv6_body(x, layer_p, cache)
         a_out, new_cache = self._attn_half(x, layer_p, window, cache,
                                            write_pos, positions,
-                                           mrope_positions)
-        x, aux = self._mlp_half(x + a_out, layer_p, cache, mesh)
+                                           mrope_positions, plan)
+        x, aux = self._mlp_half(x + a_out, layer_p, cache, mesh, plan)
         return x, (new_cache if cache is not None else None), aux
 
     def _attn_half(self, x, layer_p, window, cache, write_pos, positions,
-                   mrope_positions):
+                   mrope_positions, plan=None):
         """The attention sublayer's output (the twin's ``"attn_out"``)
-        and its new cache."""
+        and its new cache. In the rank step the layer's attention shards
+        are gathered over ``data`` here, inside the remat region."""
         cfg = self.cfg
         h = rms_norm(x, layer_p["pre_norm"]["scale"], cfg.norm_eps)
+        if plan is not None:
+            ap = plan.fsdp(layer_p["attn"], plan.layer_shardings()["attn"])
+            return attn.gqa_forward_tp(ap, h, cfg=cfg, positions=positions,
+                                       window=window, groups=plan.groups)
         if cfg.mla is not None:
             return attn.mla_forward(
                 layer_p["attn"], h, cfg=cfg, positions=positions,
@@ -328,10 +390,18 @@ class DecoderLM:
             window=window, cache=cache, write_pos=write_pos,
             mrope_positions=mrope_positions)
 
-    def _mlp_half(self, x, layer_p, cache, mesh):
+    def _mlp_half(self, x, layer_p, cache, mesh, plan=None):
         """``x`` + the MLP or MoE sublayer, and the MoE aux loss."""
         cfg = self.cfg
         h = rms_norm(x, layer_p["pre_mlp_norm"]["scale"], cfg.norm_eps)
+        if plan is not None:
+            lsh = plan.layer_shardings()
+            if cfg.moe:
+                m_out, aux = moe_mod.moe_forward_rank(
+                    layer_p["moe"], lsh["moe"], h, cfg, plan=plan)
+                return x + m_out, aux
+            mp = plan.fsdp(layer_p["mlp"], lsh["mlp"])
+            return x + mlp_forward_tp(mp, h, cfg, plan.groups), self._zero(x)
         if cfg.moe:
             # decode steps route droplessly (C = T = batch is small);
             # train / prefill keep GShard capacity semantics
@@ -401,6 +471,7 @@ class DecoderLM:
 
         cfg = self.cfg
         mesh = current_mesh() if cfg.moe_ep else None
+        plan = part.current_rank_plan()
         windows = self.layer_windows()
         layers = _unstacked(params["layers"], cfg.n_layers)
         new, auxs = [], []
@@ -409,27 +480,28 @@ class DecoderLM:
                            else {k: v[i] for k, v in cache.items()})
             if remat and cache is None:
                 x, aux = self._remat_body(x, layers[i], int(windows[i]),
-                                          positions, mrope_positions, mesh)
+                                          positions, mrope_positions, mesh,
+                                          plan)
                 c = None
             else:
                 x, c, aux = self._layer_body(
                     x, layers[i], int(windows[i]), layer_cache, write_pos,
-                    positions, mrope_positions, mesh)
+                    positions, mrope_positions, mesh, plan)
             new.append(c)
             auxs.append(aux)
         new_cache = None if cache is None else _stacked(new, cache)
         return x, new_cache, torch.sum(torch.stack(auxs))
 
     def _remat_body(self, x, layer_p, window, positions, mrope_positions,
-                    mesh):
+                    mesh, plan=None):
         """One cache-free layer under ``cfg.remat_policy``: (x, aux)."""
         cfg = self.cfg
         if cfg.remat_policy == "attn_out" and cfg.block_kind == "attn":
             a_out, _ = remat(lambda x, lp: self._attn_half(
-                x, lp, window, None, None, positions, mrope_positions))(
-                    x, layer_p)
-            return remat(lambda x, lp: self._mlp_half(x, lp, None, mesh))(
-                x + a_out, layer_p)
+                x, lp, window, None, None, positions, mrope_positions,
+                plan))(x, layer_p)
+            return remat(lambda x, lp: self._mlp_half(
+                x, lp, None, mesh, plan))(x + a_out, layer_p)
         # "attn_out" names a tensor only attention blocks have: elsewhere
         # it saves nothing, as "nothing"
         policy = "nothing" if cfg.remat_policy == "attn_out" else (
@@ -437,7 +509,8 @@ class DecoderLM:
 
         def body(x, lp):
             x, _, aux = self._layer_body(x, lp, window, None, None,
-                                         positions, mrope_positions, mesh)
+                                         positions, mrope_positions, mesh,
+                                         plan)
             return x, aux
 
         return remat(body, policy)(x, layer_p)
@@ -515,7 +588,95 @@ class DecoderLM:
                 logits)
         return logits
 
+    # ---------------- the rank step ----------------
+    def _embed_rank(self, params, batch_in, plan):
+        """The lookup of this rank's tokens: the table gathered over
+        ``data``; over ``model`` vocab-parallel (each rank looks up the
+        tokens of its vocab slice, zeros elsewhere, summed by one
+        all-reduce)."""
+        table = plan.fsdp(params["embed"], plan.shardings["embed"])["table"]
+        tokens = torch.as_tensor(batch_in["tokens"],
+                                 device=table.device).to(torch.int64)
+        if table.shape[0] == self.cfg.padded_vocab:
+            return table[tokens]
+        vl = table.shape[0]
+        local = tokens - plan.groups.index("model") * vl
+        mine = (local >= 0) & (local < vl)
+        x = torch.where(mine[..., None], table[local.clamp(0, vl - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+        return pg.reduce_out(x, plan.groups)
+
+    def _head_rank(self, hp, x, targets, plan):
+        """Final norm, logits and the vocab-parallel cross entropy of this
+        rank's rows: ``(sum of CE + z_weight sum of logz^2) / N``, ``N``
+        the microbatch's tokens over all data ranks, so the data ranks'
+        parts sum to the twin's token means. Over ``model`` the max and
+        the sum of exponentials are all-reduced, never the logits."""
+        cfg = self.cfg
+        groups = plan.groups
+        x = rms_norm(x, hp["final_norm"]["scale"], cfg.norm_eps)
+        if cfg.tie_embeddings:
+            w = plan.fsdp(hp["embed"], plan.shardings["embed"])["table"].T
+        else:
+            w = plan.fsdp(hp["unembed"],
+                          plan.shardings["unembed"])["table"]
+        vl = w.shape[1]
+        sharded = vl != cfg.padded_vocab
+        lo = groups.index("model") * vl if sharded else 0
+        logits = (pg.copy_in(x, groups) if sharded else x) @ w
+        if cfg.padded_vocab != cfg.vocab_size:
+            pad = torch.arange(lo, lo + vl,
+                               device=logits.device) >= cfg.vocab_size
+            logits = torch.where(pad, torch.full(
+                (), -2.0 ** 20, dtype=logits.dtype, device=logits.device),
+                logits)
+        lf = logits.to(torch.float32)
+        t = targets.to(torch.int64) - lo
+        if sharded:
+            mx = torch.amax(lf, dim=-1).detach()
+            pg.all_reduce_(mx, groups, "model", op="max")
+            se = torch.sum(torch.exp(lf - mx[..., None]), dim=-1)
+            logz = torch.log(pg.reduce_out(se, groups)) + mx
+            mine = (t >= 0) & (t < vl)
+            gold = torch.gather(lf, -1, t.clamp(0, vl - 1)[..., None])[..., 0]
+            gold = pg.reduce_out(torch.where(mine, gold, torch.zeros(
+                (), dtype=lf.dtype, device=lf.device)), groups)
+        else:   # the one-device ops: a rank mesh of one is bit-equal
+            logz = torch.logsumexp(lf, dim=-1)
+            gold = torch.gather(lf, -1, t[..., None])[..., 0]
+        if plan.dp == 1:
+            return torch.mean(logz - gold) + 1e-4 * torch.mean(logz * logz)
+        n = float(targets.numel() * plan.dp)
+        return (torch.sum(logz - gold) / n
+                + 1e-4 * (torch.sum(logz * logz) / n))
+
+    def _loss_rank(self, params, batch_in, rematerialize, plan):
+        """This rank's part of the microbatch's loss: its rows' CE and
+        z-loss over the microbatch's token count, plus the aux loss over
+        the data ranks' count (each data rank holds the microbatch's aux,
+        or with ``moe_ep`` its row's, whose mean the twin takes), so the
+        parts sum over ``data`` to the twin's loss; every ``model`` rank
+        holds the same part."""
+        x = self._embed_rank(params, batch_in, plan)
+        B, S = x.shape[0], x.shape[1]
+        positions = self._positions(batch_in, B, S, x.device)
+        x, _, aux = self._run_stack(params, x, positions, None, None, None,
+                                    remat=rematerialize)
+        targets = torch.as_tensor(batch_in["targets"], device=x.device)
+        hp = {k: params[k] for k in ("embed", "final_norm", "unembed")
+              if k in params}
+
+        def head(x, hp):
+            return self._head_rank(hp, x, targets, plan)
+
+        own = remat(head)(x, hp) if rematerialize else head(x, hp)
+        return own + aux / plan.dp, {"aux": aux}
+
     def loss(self, params, batch_in, *, remat: bool = False):
+        plan = part.current_rank_plan()
+        if plan is not None:
+            return self._loss_rank(params, batch_in, remat, plan)
         logits, aux = self.forward(params, batch_in, remat=remat)
         targets = torch.as_tensor(batch_in["targets"], device=logits.device)
         ce, parts = cross_entropy_loss(logits, targets)

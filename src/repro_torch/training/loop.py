@@ -15,6 +15,12 @@ Twin of :mod:`repro.training.loop`:
 
 A step's time ends with a synchronize on the device of the state's first
 tensor leaf (the twin blocks on its first leaf).
+
+Across ranks (one process a device) the state holds this rank's shards,
+and ``shards`` (:class:`Shards`) moves it to the checkpoint's full layout
+and back: every rank takes part in the gather, rank 0 alone writes, and
+a resume reads the file on rank 0 and scatters it, so one checkpoint
+serves the one-process and the rank launchers.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from repro_torch import checkpoint as ckpt
 from repro_torch.distributed.straggler import StragglerDetector
 from repro_torch.tree import leaves, tree_map
 
-__all__ = ["LoopConfig", "run_loop"]
+__all__ = ["LoopConfig", "Shards", "run_loop"]
 
 
 @dataclasses.dataclass
@@ -42,6 +48,18 @@ class LoopConfig:
     log_every: int = 50
     num_hosts: int = 1               # for the straggler detector
     fail_at_step: int | None = None  # test hook: simulate preemption
+
+
+@dataclasses.dataclass
+class Shards:
+    """How a rank's state meets the checkpoint: ``gather(state)`` gives
+    the full state on the writer (None elsewhere), ``scatter(full,
+    state)`` this rank's state from the writer's full one (None
+    elsewhere); every rank calls both."""
+
+    writer: bool
+    gather: Callable
+    scatter: Callable
 
 
 def _device_of(leaf) -> torch.device:
@@ -64,20 +82,33 @@ def run_loop(
     *,
     log_fn: Callable = print,
     on_straggler: Callable | None = None,
+    shards: Shards | None = None,
 ) -> dict:
-    """Run (or resume) the training loop. ``state`` must contain 'step'."""
+    """Run (or resume) the training loop. ``state`` must contain 'step'.
+    With ``shards`` the state is a rank's (module docstring)."""
+    writer = shards is None or shards.writer
     saver = (ckpt.AsyncCheckpointer(config.checkpoint_dir,
                                     config.keep_checkpoints)
-             if config.checkpoint_dir else None)
+             if config.checkpoint_dir and writer else None)
     detector = StragglerDetector(config.num_hosts)
 
+    def save(step, meta):
+        full = state if shards is None else shards.gather(state)
+        if saver:
+            saver.save(step, full, meta)
+
     start = int(state["step"])
-    if saver and (latest := ckpt.latest_step(config.checkpoint_dir)) is not None:
+    if config.checkpoint_dir and (
+            latest := ckpt.latest_step(config.checkpoint_dir)) is not None:
         if latest >= start:
-            restored, _ = ckpt.load(
-                config.checkpoint_dir, latest, like=state,
-                device_tree=tree_map(_device_of, state))
-            state = restored
+            if shards is None:
+                state, _ = ckpt.load(
+                    config.checkpoint_dir, latest, like=state,
+                    device_tree=tree_map(_device_of, state))
+            else:
+                full = (ckpt.load(config.checkpoint_dir, latest,
+                                  like=state)[0] if writer else None)
+                state = shards.scatter(full, state)
             start = int(state["step"])
             log_fn(f"[loop] resumed from checkpoint step {start}")
 
@@ -102,9 +133,10 @@ def run_loop(
             msg = " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items()
                            if np.ndim(v) == 0)
             log_fn(f"[loop] step {step}: {msg} ({dt*1e3:.0f} ms)")
-        if saver and (step + 1) % config.checkpoint_every == 0:
-            saver.save(step + 1, state, {"wall_time": time.time()})
+        if config.checkpoint_dir and (step + 1) % config.checkpoint_every == 0:
+            save(step + 1, {"wall_time": time.time()})
+    if config.checkpoint_dir:
+        save(config.total_steps, {"final": True})
     if saver:
-        saver.save(config.total_steps, state, {"final": True})
         saver.wait()
     return state

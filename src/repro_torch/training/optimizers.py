@@ -11,6 +11,12 @@ a state carries across the packages leaf for leaf.
     params = apply_updates(params, updates)
 
 ``step`` is a 0-d int32 tensor on the device of the first param.
+
+Across ranks (one process a device) each rank updates its own shards:
+Adam is elementwise, and :func:`clip_by_global_norm` takes ``owned`` (a
+flag a leaf: this rank's shard is the one counted among its replicas)
+and ``all_reduce`` (sums the partial square sum over every rank), so a
+leaf replicated over an axis counts once, not once a rank.
 """
 
 from __future__ import annotations
@@ -45,15 +51,25 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, *, owned=None, all_reduce=None) -> torch.Tensor:
     """``sqrt`` of the sum over leaves, in flatten order, of each leaf's
-    sum of squares in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves(tree)))
+    sum of squares in float32. Across ranks: only the leaves ``owned``
+    marks, the partial sum completed by ``all_reduce``."""
+    flat = leaves(tree)
+    owned = [True] * len(flat) if owned is None else owned
+    total = sum(torch.sum(torch.square(x.to(torch.float32)))
+                for x, own in zip(flat, owned) if own)
+    if all_reduce is not None:
+        if not isinstance(total, torch.Tensor):   # this rank owns none
+            total = torch.zeros((), dtype=torch.float32,
+                                device=flat[0].device)
+        total = all_reduce(total)
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, *, owned=None,
+                        all_reduce=None):
+    norm = global_norm(grads, owned=owned, all_reduce=all_reduce)
     scale = torch.clamp_max(max_norm / (norm + 1e-12), 1.0)
     return tree_map(lambda g: g * scale, grads), norm
 

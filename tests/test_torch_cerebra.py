@@ -28,6 +28,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from test_torch_lm_train import one_torch_thread  # noqa: E402,F401
 
 from repro.core import cerebra_h as jch  # noqa: E402
 from repro.core import cerebra_s as jcs  # noqa: E402

@@ -24,6 +24,7 @@ from hypothesis import strategies as st
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from test_torch_lm_train import one_torch_thread  # noqa: E402,F401
 
 from repro.core import cerebra_h as jch  # noqa: E402
 from repro.core import engine as jeng  # noqa: E402

@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from test_torch_lm_train import one_torch_thread  # noqa: E402,F401
 
 from repro.core import engine as jeng  # noqa: E402
 from repro.core.cerebra_h import CerebraHConfig as JConfig  # noqa: E402

@@ -49,6 +49,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from test_torch_lm_train import one_torch_thread  # noqa: E402,F401
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.launch.steps import LMHarness as JHarness  # noqa: E402

@@ -39,6 +39,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from test_torch_lm_train import one_torch_thread  # noqa: E402,F401
 
 from test_torch_lm import (  # noqa: E402
     BF16_MARGIN, BF16_TOL, DECODE_TOL, EAGER_ATOL, EAGER_RTOL,

@@ -58,11 +58,12 @@ SMOKE = Shape("smoke", 32, 2, "train")
 FAST_XLA = {"xla_backend_optimization_level": 0}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
-    """Each test on one torch thread (restored after): the suite runs
-    several workers on the host's cores, and torch's OpenMP pool
-    oversubscribed by them runs these small ops up to 100x slower."""
+    """The module on one torch thread, its module fixtures too (restored
+    after): the suite runs several workers on the host's cores, and
+    torch's OpenMP pool oversubscribed by them runs these small ops up to
+    100x slower."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

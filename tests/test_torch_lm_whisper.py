@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from test_torch_lm_train import one_torch_thread  # noqa: E402,F401
 
 from test_torch_lm import DECODE_TOL, LAYER_SAME_MIN  # noqa: E402
 from test_torch_lm_recurrent import (  # noqa: E402

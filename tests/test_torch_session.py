@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from test_torch_lm_train import one_torch_thread  # noqa: E402,F401
 
 from repro.configs import snap_v_snn as jcfg  # noqa: E402
 from repro.core import cerebra_h as jch  # noqa: E402

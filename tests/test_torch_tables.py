@@ -26,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from test_torch_lm_train import one_torch_thread  # noqa: E402,F401
 
 from benchmarks import speedup_s_vs_h as jspeed  # noqa: E402
 from benchmarks import table_iii_comparison as jt3  # noqa: E402
