@@ -195,9 +195,20 @@ in phases that each exit non-zero on failure:
    first-step bound; on one rank bit for bit); with four cards
    granite-3-2b whole in bf16 on ``(4, 1)``, B 8 x S 512, ``micro_rows``
    2, 4 steps: per step loss, grad norm, wall and CUDA-event ms and the
-   NCCL bytes by kind, each rank's memory peak; the loss must fall. With
+   NCCL bytes by kind, each rank's memory peak; the loss must fall; and
+   the dry-run of that cell (below) counts the calls and bytes the ranks
+   counted, exactly, its peak printed beside theirs. With
    fewer cards a line names the runs that need four. Any rank's failure
-   fails the run.
+   fails the run;
+16. runs the dry-run of phase 14's cell (``repro_torch.launch.dryrun``:
+   granite-3-2b whole, bf16, B 8 x S 512, ``micro_rows`` 2, a ``(1, 1)``
+   rank mesh of fake CUDA tensors under the fake process group, costed
+   by ``repro_torch.op_analysis``): its live-storage peak must lie within
+   0.8-1.25 of phase 14's measured peak; prints both peaks, the ratio and
+   the roofline terms on the H100's data-sheet constants beside phase
+   14's step times; then ``op_analysis.analyze_step`` on one real step
+   of that cell on the card, its live-storage peak within 1 % of the
+   allocator's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -3843,8 +3854,123 @@ def phase_lm_ranks(np, torch, card) -> dict:
             f"({w['nccl_busy_ms']:.1f} ms of it in NCCL kernels); the first "
             f"batch's loss {w['steps'][0]['loss']:.4f} -> "
             f"{w['first_batch_after']:.4f} ({card})")
+        d = res["dryrun"]   # the launcher held its counts to every step's
+        log(f"dry-run {LM_ARCH} whole on (4, 1): calls {d['calls']} and "
+            f"bytes {d['bytes']} == every step's; peak "
+            f"{d['memory']['total_bytes'] / 2**30:.4f} GiB a rank, "
+            + ", ".join(f"{r:.4f}" for r in d["peak_over_measured"])
+            + f" of the ranks' measured peaks; {d['seconds']:.1f} s "
+            f"({card})")
     log(f"phase 15: {res['world']} rank(s), {res['phase_s']:.1f} s ({card})")
     return res
+
+
+# --------------------------------------------------------------------------
+# phase 16: the dry-run of phase 14's cell
+# --------------------------------------------------------------------------
+DRYRUN_PEAK_RATIO = (0.8, 1.25)   # dry-run peak over phase 14's measured
+TRACKED_PEAK_RATIO = (0.99, 1.01)  # op analysis of a real step / allocator
+
+
+def phase_lm_dryrun(np, torch, card, whole) -> dict:
+    """``repro_torch.launch.dryrun.run_cell`` of phase 14's cell:
+    granite-3-2b whole, bf16, B 8 x S 512, ``micro_rows`` 2, as a ``(1,
+    1)`` rank mesh of fake CUDA tensors under the fake process group (no
+    card memory, no communication). Its live-storage peak must lie
+    within ``DRYRUN_PEAK_RATIO`` of the peak phase 14 measured
+    (``max_memory_allocated`` less what earlier phases held); its
+    roofline terms are printed beside phase 14's step. Then the op
+    analysis of one real step of that cell on the card: its live-storage
+    peak within ``TRACKED_PEAK_RATIO`` of the allocator's."""
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import dryrun
+
+    S, B = TRAIN_LM_SHAPE
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(
+        LM_ARCH, Shape("train_card", S, B, "train"), mesh=(1, 1),
+        variant=f"micro_rows={TRAIN_LM_MICRO_ROWS}", device="cuda",
+        verbose=False)
+    rec["phase_s"] = time.perf_counter() - t0
+    check(rec["status"] == "ok", f"the dry-run of phase 14's cell: "
+          f"{rec['status']} {rec.get('error')}\n{rec.get('traceback')}")
+    check(rec["n_micro"] == whole["n_micro"], f"the dry-run's "
+          f"{rec['n_micro']} microbatches, phase 14's {whole['n_micro']}")
+    measured = whole["peak_bytes"] - whole["held"]
+    peak = rec["memory"]["total_bytes"]
+    ratio = peak / measured
+    lo, hi = DRYRUN_PEAK_RATIO
+    check(lo <= ratio <= hi, f"the dry-run's peak {peak} B is {ratio:.4f} "
+          f"of phase 14's measured {measured} B, outside {lo}-{hi}")
+    t = rec["roofline"]
+    event_ms = sorted(s["event_ms"] for s in whole["steps"])
+    log(f"dry-run {LM_ARCH} whole, (1, 1), B {B} x S {S}, micro_rows "
+        f"{TRAIN_LM_MICRO_ROWS}: peak {peak / 2**30:.4f} GiB (arguments "
+        f"{rec['memory']['argument_bytes'] / 2**30:.4f}, temporaries "
+        f"{rec['memory']['temp_bytes'] / 2**30:.4f}) vs phase 14's measured "
+        f"{measured / 2**30:.4f} GiB ({whole['peak_bytes'] / 2**30:.4f} "
+        f"less {whole['held'] / 2**30:.4f} held): ratio {ratio:.4f} "
+        f"({card})")
+    log(f"dry-run {LM_ARCH} roofline on H100 data-sheet constants: "
+        f"{rec['cost']['flops_per_device']:.6e} FLOP "
+        f"({rec['cost']['dot_flops']:.6e} in dots), "
+        f"{rec['cost']['bytes_per_device']:.6e} B; compute "
+        f"{t['compute_s'] * 1e3:.1f} ms, memory {t['memory_s'] * 1e3:.1f} "
+        f"ms, dominant {t['dominant']}, useful flops ratio "
+        f"{t['useful_flops_ratio']:.4f}; phase 14's steps "
+        f"{event_ms[0]:.1f}-{event_ms[-1]:.1f} ms between CUDA events, "
+        f"the bound {t['bound_s'] * 1e3 / event_ms[0]:.4f} of the fastest; "
+        f"analyzed in {rec['phase_s']:.1f} s of host time ({card})")
+    rec["tracked"] = tracked_real_step(np, torch, card)
+    return rec
+
+
+def tracked_real_step(np, torch, card) -> dict:
+    """``op_analysis.analyze_step`` on real CUDA tensors: one step of
+    phase 14's cell on the logical 1 x 1 mesh, its live-storage peak
+    against ``max_memory_allocated`` over the same step."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.core import prng
+    from repro_torch.data import lm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import LMHarness
+    from repro_torch.op_analysis import analyze_step
+
+    cfg = configs.get_arch(LM_ARCH).CONFIG
+    h = LMHarness(LM_ARCH, cfg=cfg, micro_rows=TRAIN_LM_MICRO_ROWS)
+    S, B = TRAIN_LM_SHAPE
+    step = h.make_train_step(Shape("train_card", S, B, "train"),
+                             make_host_mesh(devices=["cuda"]))
+    free_card(torch)
+    held = torch.cuda.memory_allocated()
+    params = h.model.init(prng.key(0), device="cuda")
+    opt_state = h.opt.init(params)
+    toks = torch.from_numpy(lm.TokenStream(cfg.vocab_size, seed=0).sample(
+        B, S, 0).astype(np.int32)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stepped, cost = analyze_step(
+        step, params, opt_state,
+        {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+    torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t0,
+           "allocator": torch.cuda.max_memory_allocated() - held,
+           "tracked": cost.total_bytes, "flops": cost.flops,
+           "dot_flops": cost.dot_flops}
+    del params, opt_state, stepped, step, cost
+    free_card(torch)
+    ratio = out["tracked"] / out["allocator"]
+    lo, hi = TRACKED_PEAK_RATIO
+    check(lo <= ratio <= hi, f"the op analysis of a real step tracked "
+          f"{out['tracked']} B at its peak, the allocator "
+          f"{out['allocator']} B: {ratio:.5f}, outside {lo}-{hi}")
+    log(f"op analysis of one real {LM_ARCH} step on the card (logical 1 x "
+        f"1): live-storage peak {out['tracked']} B vs the allocator's "
+        f"{out['allocator']} B ({ratio:.5f}); {out['dot_flops']:.6e} dot "
+        f"FLOP; {out['seconds']:.1f} s under the trace ({card})")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3964,10 +4090,13 @@ def main() -> None:
     phase_lm_zoo_recurrent(np, torch, card, args.seed)
 
     log("phase 14: LM training on the card")
-    phase_lm_train(np, torch, card)
+    lm_train = phase_lm_train(np, torch, card)
 
     log("phase 15: the LM train step across ranks, one process a card")
     phase_lm_ranks(np, torch, card)
+
+    log("phase 16: the dry-run of phase 14's cell on fake tensors")
+    phase_lm_dryrun(np, torch, card, lm_train["whole"])
     check_no_jax()
 
     print(card, flush=True)  # name, power limit as nvidia-smi gives them

@@ -19,7 +19,11 @@ world allows (4: ``(2, 2)`` and ``(4, 1)``; 2: ``(2, 1)`` and ``(1, 2)``;
   must be below the first step's); per step the wall and CUDA-event ms,
   the NCCL bytes by kind (``process_group.BYTES``), per rank the memory
   peak of the sharded init and of the steps; rank 0's busy ms in a sixth step under ``torch.profiler``, and
-  the part of it in NCCL's kernels.
+  the part of it in NCCL's kernels; then, once the ranks have ended, the
+  launcher runs the dry-run of that cell (``repro_torch.launch.dryrun``:
+  rank 0's step on fake CUDA tensors under the fake process group),
+  whose collective calls and bytes by kind must equal every measured
+  step's, and sets its live-storage peak beside the ranks' peaks.
 
 Rank 0 writes the results as JSON to ``--out`` (default
 ``chiprun_out/lm_ranks.json``); the launcher prints them as its last
@@ -276,6 +280,37 @@ def whole_case(np, torch, groups) -> dict:
             "init_peak_bytes": init_peaks}
 
 
+def dryrun_whole(whole) -> dict:
+    """The dry-run of ``whole_case``'s cell on ``(4, 1)``: its collective
+    calls and bytes by kind (``process_group``'s convention) must equal
+    each measured step's; its peak goes beside the ranks'."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(
+        "granite-3-2b", Shape("ranks_whole", WHOLE_S, WHOLE_B, "train"),
+        mesh=(4, 1), variant=f"micro_rows={WHOLE_MICRO_ROWS}",
+        device="cuda", verbose=False)
+    if rec["status"] != "ok":
+        raise SystemExit(f"the dry-run of the whole cell: {rec}")
+    col = rec["collectives"]
+    calls = {k.replace("-", "_"): v for k, v in col["counts"].items()}
+    nbytes = {k.replace("-", "_"): v
+              for k, v in col["buffer_bytes_by_kind"].items()}
+    for i, step in enumerate(whole["steps"]):
+        if step["nccl_calls"] != calls or step["nccl_bytes"] != nbytes:
+            raise SystemExit(
+                f"step {i}: the ranks counted {step['nccl_calls']} calls, "
+                f"{step['nccl_bytes']} bytes; the dry-run {calls}, {nbytes}")
+    return {"calls": calls, "bytes": nbytes, "memory": rec["memory"],
+            "cost": rec["cost"], "roofline": rec["roofline"],
+            "peak_over_measured": [rec["memory"]["total_bytes"] / b
+                                   for b in whole["peak_bytes"]],
+            "seconds": time.perf_counter() - t0}
+
+
 def rank_main(args) -> None:
     import numpy as np
     import torch
@@ -344,7 +379,11 @@ def main(argv=None) -> None:
     rc = launch(world, args.out)
     if rc:
         raise SystemExit(f"a rank failed (exit {rc}); all {world} ended")
-    print(pathlib.Path(args.out).read_text(), flush=True)
+    res = json.loads(pathlib.Path(args.out).read_text())
+    if res["whole"] is not None:
+        res["dryrun"] = dryrun_whole(res["whole"])
+        pathlib.Path(args.out).write_text(json.dumps(res))
+    print(json.dumps(res), flush=True)
 
 
 if __name__ == "__main__":

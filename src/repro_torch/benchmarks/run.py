@@ -5,17 +5,15 @@ Twin of ``benchmarks/run.py``:
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--fast] [--full-grid] [--device cpu]
 
 Emits ``name,us_per_call,derived`` CSV lines per benchmark plus the
-formatted tables. Sections (default: all five):
+formatted tables. Sections (default: all six):
 
   table_iv   — HW-vs-SW accuracy grid (paper Table IV)
   table_v    — power breakdown on an MNIST workload (paper Table V)
   table_iii  — systems comparison (paper Table III)
   speedup    — Cerebra-S vs Cerebra-H cycles + wall time (paper §VII-B)
   kernels    — the port's kernel bench (``benchmarks/kernel_bench``)
-
-The twin's sixth section, ``roofline``, reads the LM dry-run's artifacts;
-the dry-run waits for ROADMAP Queue 1 item 12d, so it is not a default
-section here and ``--only roofline`` raises.
+  roofline   — the LM dry-run's roofline table (``benchmarks/roofline``,
+               reading ``results/dryrun_torch.json``)
 """
 
 from __future__ import annotations
@@ -42,11 +40,6 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     only = set(args.only.split(",")) if args.only else None
-    if only is not None and "roofline" in only:
-        raise NotImplementedError(
-            "the roofline section reads the LM dry-run's artifacts, which "
-            "are not ported yet: ROADMAP Queue 1 item 12d (dry-run, HLO and "
-            "roofline tooling)")
     t0 = time.time()
 
     def want(name: str) -> bool:
@@ -88,6 +81,11 @@ def main(argv=None) -> dict:
         if args.fast:
             grid_args += ["--train-steps", "60", "--eval-n", "256"]
         out["table_iv"] = table_iv_accuracy.main(grid_args + device_args)
+
+    if want("roofline"):
+        _section("roofline (from dry-run artifacts)")
+        from repro_torch.benchmarks import roofline
+        out["roofline"] = roofline.main([])
 
     print(f"\n[benchmarks] done in {time.time() - t0:.0f}s", flush=True)
     return out

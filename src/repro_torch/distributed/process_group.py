@@ -50,7 +50,8 @@ from repro_torch.tree import leaves, unflatten
 
 __all__ = ["BYTES", "CALLS", "RankGroups", "all_reduce_", "all_to_all",
            "copy_in", "file_init_method", "free_port", "gather",
-           "gather_tree", "init_ranks", "mesh_groups", "reduce_out",
+           "gather_tree", "init_fake", "init_ranks", "mesh_groups",
+           "reduce_out",
            "reset_bytes", "scatter_tree", "shutdown", "world_size"]
 
 # collective kind -> bytes moved / calls since the last reset_bytes()
@@ -110,6 +111,17 @@ def init_ranks(axis_names, sizes, *, rank: int, init_method: str,
         init_method=init_method, world_size=int(np.prod(sizes)), rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s))
     return mesh_groups(axis_names, sizes, device, timeout_s=timeout_s)
+
+
+def init_fake(world: int) -> None:
+    """Join ``torch.distributed``'s ``"fake"`` process group as rank 0 of
+    ``world``: every collective returns at once and moves nothing (the
+    dry-run, :mod:`repro_torch.launch.dryrun`). :func:`mesh_groups`
+    builds the axis groups over it; :func:`shutdown` leaves it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
 
 
 def mesh_groups(axis_names, sizes, device, *,

@@ -29,7 +29,10 @@ shard's (params, moments and the float32 accumulator; twin of
 cut of the whole draw, ``launch.train --ranks``
 resumed equals the uninterrupted run bit for bit, a failing rank ends
 the launcher nonzero, and what is not ported across ranks raises naming
-ROADMAP item 12e-ii.
+ROADMAP item 12e-ii. A third subprocess runs the dry-run
+(``repro_torch.launch.dryrun.run_cell``: rank 0's step on fake tensors
+under the fake process group) of every case; its collective calls and
+bytes by kind and its dot FLOPs equal what the ranks counted.
 """
 
 import dataclasses
@@ -135,6 +138,7 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.launch.mesh import make_rank_mesh
 from repro_torch.launch.steps import LMHarness
 from repro_torch.tree import leaves, unflatten
+from torch.utils.flop_counter import FlopCounterMode
 
 acc_shapes = []     # the float32 accumulator's shapes, one entry a step
 _accumulate = tsteps._accumulate
@@ -181,7 +185,8 @@ for arch, ep, shape in json.loads(sys.argv[5]):
     step = h.make_train_step(sh, mesh)
     pg.reset_bytes()
     acc_shapes.clear()
-    new, opt, metrics = step(params, h.opt.init(params), batch)
+    with FlopCounterMode(display=False) as flops:
+        new, opt, metrics = step(params, h.opt.init(params), batch)
     calls = dict(pg.CALLS)
     shapes[tag] = {
         "params": [list(x.shape) for x in leaves(new)],
@@ -189,6 +194,8 @@ for arch, ep, shape in json.loads(sys.argv[5]):
         "v": [list(x.shape) for x in leaves(opt["v"])],
         "acc": acc_shapes[-1],
         "calls": calls,
+        "bytes": dict(pg.BYTES),
+        "dot_flops": flops.get_total_flops(),
         "loss": float(metrics["loss"]),
         "grad_norm": float(metrics["grad_norm"]),
     }
@@ -205,6 +212,33 @@ with open(os.path.join(outdir, f"shapes_{rank}.json"), "w") as f:
 if rank == 0:
     np.savez(os.path.join(outdir, "ranks.npz"), **out)
 pg.shutdown()
+print("OK")
+"""
+
+
+# the dry-run of every case (argv: cases, out file): rank 0's step on fake
+# tensors under the fake process group of the case's mesh
+_DRYRUN_SIDE = r"""
+import dataclasses, json, sys
+import torch
+torch.set_num_threads(1)
+from repro_torch import configs
+from repro_torch.configs.shapes import Shape
+from repro_torch.launch import dryrun
+
+B, S, CF = %(B)d, %(S)d, %(CF)r
+out = {}
+for arch, ep, shape in json.loads(sys.argv[1]):
+    cfg = dataclasses.replace(configs.get_arch(arch).REDUCED,
+                              dtype=torch.float32, moe_ep=ep)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=CF))
+    out[f"{arch}/{ep}/{shape[0]}x{shape[1]}"] = dryrun.run_cell(
+        arch, Shape("ranks", S, B, "train"), mesh=tuple(shape), cfg=cfg,
+        device="cpu", verbose=False)
+with open(sys.argv[2], "w") as f:
+    json.dump(out, f)
 print("OK")
 """
 
@@ -326,13 +360,18 @@ def runs(tmp_path_factory, launches):
         [sys.executable, "-c", _RANK_SIDE % subs, str(r), init, inputs,
          str(tmp), json.dumps(CASES)], text=True, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, env=_clean_env()) for r in range(4)]
+    dry = subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_SIDE % subs, json.dumps(CASES),
+         str(tmp / "dryrun.json")], text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, env=_clean_env())
     try:
         for r, proc in enumerate(ranks):
             _finish(proc, f"rank {r}")
         for i, proc in enumerate(jax_procs):
             _finish(proc, f"the JAX side on {MESHES[i]}")
+        _finish(dry, "the dry-run")
     finally:
-        for proc in ranks + jax_procs:
+        for proc in ranks + jax_procs + [dry]:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
@@ -346,8 +385,10 @@ def runs(tmp_path_factory, launches):
     for r in range(4):
         with open(tmp / f"shapes_{r}.json") as f:
             shapes.append(json.load(f))
+    with open(tmp / "dryrun.json") as f:
+        dryrun = json.load(f)
     return {"inputs": dict(np.load(inputs)), "jax": jax_out,
-            "ranks": rank_out, "shapes": shapes}
+            "ranks": rank_out, "shapes": shapes, "dryrun": dryrun}
 
 
 def _check(got, want, tag, n):
@@ -374,6 +415,29 @@ def test_ranks_match_jax(runs, arch, ep, mesh):
     """4 gloo ranks == JAX's ``make_train_step`` on 4 faked devices."""
     tag = _tag(arch, ep, mesh)
     _check(runs["ranks"], runs["jax"], tag, _n_leaves(arch))
+
+
+@pytest.mark.parametrize("arch,ep,mesh", CASES)
+def test_dryrun_counts_what_the_ranks_did(runs, arch, ep, mesh):
+    """The dry-run of the same cut, mesh and batch (rank 0's step on fake
+    tensors under the fake process group) issues the collectives the 4
+    gloo ranks issued, call for call and byte for byte by kind
+    (``process_group.CALLS`` / ``BYTES``), and counts rank 0's dot FLOPs
+    (``FlopCounterMode``) exactly."""
+    tag = _tag(arch, ep, mesh)
+    rec = runs["dryrun"][tag]
+    assert rec["status"] == "ok", rec.get("traceback")
+    got = runs["shapes"][0][tag]
+    col = rec["collectives"]
+    assert {k.replace("-", "_"): v for k, v in col["counts"].items()} == \
+        got["calls"]
+    assert {k.replace("-", "_"): v for k, v in
+            col["buffer_bytes_by_kind"].items()} == got["bytes"]
+    assert rec["cost"]["dot_flops"] == got["dot_flops"]
+    # the twin's convention differs in the reduce-scatter alone
+    for kind, b in col["bytes_by_kind"].items():
+        if kind != "reduce-scatter":
+            assert b == col["buffer_bytes_by_kind"][kind], (tag, kind)
 
 
 @pytest.fixture

@@ -230,6 +230,30 @@ def test_run_fast_sections_on_cpu():
     assert out["speedup"]["cycles_s"].shape == (25, 32)
 
 
-def test_run_only_roofline_raises():
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        trun.main(["--only", "roofline", "--device", "cpu"])
+def test_run_only_roofline_prints_the_table(tmp_path, monkeypatch):
+    """``run --only roofline`` prints the roofline table of the records a
+    dry-run wrote (its process group in a subprocess): the header and the
+    cell's row, a cell the rank step does not run shown with its
+    reason."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    records = tmp_path / "results" / "dryrun_torch.json"
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "granite-3-2b", "--shape", "decode_32k", "--mesh", "single",
+         "--device", "cpu", "--out", str(records)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    monkeypatch.chdir(tmp_path)   # the section reads results/ there
+    out, text = _out(trun.main, ["--only", "roofline", "--device", "cpu"])
+    assert list(out) == ["roofline"] and len(out["roofline"]) == 1
+    assert "===== roofline (from dry-run artifacts) =====" in text
+    assert ("arch,shape,mesh,status,compute_s,memory_s,collective_s,"
+            "dominant,useful_flops_ratio,roofline_fraction,"
+            "mem_gib_per_dev") in text
+    assert ("granite-3-2b,decode_32k,single_pod_16x16,NOT_PORTED,,,,,,,"
+            "\"decode across ranks is not ported yet") in text
