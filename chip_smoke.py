@@ -208,7 +208,28 @@ in phases that each exit non-zero on failure:
    the roofline terms on the H100's data-sheet constants beside phase
    14's step times; then ``op_analysis.analyze_step`` on one real step
    of that cell on the card, its live-storage peak within 1 % of the
-   allocator's.
+   allocator's;
+17. serves across ranks (``scripts/torch_lm_serve_ranks_calls.py``):
+   one NCCL process a card, ``min(4, visible cards)`` of them, each
+   running ``LMHarness.make_prefill_step`` and ``make_decode_step`` on
+   its shards of the params and of the cache (the slots over ``model``:
+   decode context parallelism): float32 cuts at full width of
+   granite-3-2b (2 layers), granite-20b (2 layers, MQA) and mixtral-8x7b
+   (2 layers, MoE, window 4096) on ``(2, 2)``, ``(4, 1)`` and ``(1, 4)``
+   (two cards: ``(2, 1)``, ``(1, 2)``; one: ``(1, 1)``), B 4 x S 512
+   prefill and 8 decode steps teacher-forced on the one-card run's
+   tokens, each held to the one-card logical steps (logits and the
+   gathered cache within 1e-5 of each tensor's scale, ``|d| <= 1e-5
+   (|want| + max |want|)``, with ``slot_pos`` equal, tokens equal where
+   the one-card top-2 margin exceeds 1e-4; on one rank bit for bit); with four cards mixtral-8x7b whole in bf16 on ``(2, 2)``, which
+   no one card holds: 8 prompts of 512 tokens, 32 greedy decode steps,
+   per rank the memory peaks and param shard bytes, the prefill's wall,
+   the decode step's wall and CUDA-event ms at p50 / p95, tokens/s, the
+   NCCL calls and bytes of a decode step, rank 0's busy ms in a profiled
+   step and its NCCL part, every token in the vocabulary and every logit
+   finite; and the dry-run of that decode cell counts the calls and
+   bytes the ranks counted, exactly. With fewer cards a line names the
+   runs that need four. Any rank's failure fails the run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -3866,6 +3887,97 @@ def phase_lm_ranks(np, torch, card) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 17: prefill and decode across ranks
+# --------------------------------------------------------------------------
+def phase_lm_serve_ranks(np, torch, card) -> dict:
+    """``scripts/torch_lm_serve_ranks_calls.py`` on the visible cards (at
+    most four): its ranks' float32 cuts against the one-card logical
+    steps and, with four, mixtral-8x7b whole on ``(2, 2)``."""
+    import os
+
+    n_cards = torch.cuda.device_count()
+    world = 4 if n_cards >= 4 else (2 if n_cards >= 2 else 1)
+    if world < 4:
+        log(f"phase 17 on {n_cards} card(s): the (2, 2), (4, 1) and (1, 4) "
+            f"prefill and decode steps and mixtral-8x7b whole in bf16 on "
+            f"(2, 2) need four cards; this run holds the NCCL path on "
+            f"{world} rank(s)")
+    free_card(torch)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = pathlib.Path(d) / "serve_ranks.json"
+        proc = subprocess.run(
+            [sys.executable,
+             str(ROOT / "scripts" / "torch_lm_serve_ranks_calls.py"),
+             "--world", str(world), "--out", str(out)], env=env,
+            capture_output=True, text=True, timeout=1100)
+        check(proc.returncode == 0 and out.is_file(),
+              f"the serving ranks failed: rc {proc.returncode}\n"
+              f"{proc.stderr[-3000:]}")
+        res = json.loads(out.read_text())
+    res["phase_s"] = time.perf_counter() - t0
+    for c in res["cases"]:
+        mesh = f"({c['mesh'][0]}, {c['mesh'][1]})"
+        if world == 1:
+            check(c["bit_equal"], f"{c['what']} on one NCCL rank is not "
+                  f"the one-card prefill and decode bit for bit: {c}")
+        else:
+            check(c["logits_ok"] and c["cache_ok"] and c["tokens_ok"],
+                  f"{c['what']} on {mesh} ranks vs the one-card logical "
+                  f"mesh: {c}")
+        spread = ("n/a (MoE)" if c["one_card_half_batch_err"] is None
+                  else f"{c['one_card_half_batch_err']:.3e}")
+        log(f"serve ranks {c['what']} on {mesh} ({c['layout']} cache): "
+            f"prefill logits max |d| {c['logits_max_abs_err']:.3e} (max "
+            f"|logit| {c['logits_max_abs']:.3f}; {c['logits_scaled_err']:.4f}"
+            f" x the tolerance; the one-card prefill of half the batch "
+            f"{spread} from the whole's), cache "
+            f"k / v max |d| {c['cache_max_abs_err']['k']:.3e} / "
+            f"{c['cache_max_abs_err']['v']:.3e} (max |k| / |v| "
+            f"{c['cache_max_abs']['k']:.3f} / {c['cache_max_abs']['v']:.3f}; "
+            f"{max(c['cache_scaled_err'].values()):.4f} x the tolerance), "
+            f"slot_pos equal, tokens "
+            f"equal on {c['tokens_compared']} of {c['tokens_total']} with "
+            f"a top-2 margin > 1e-4 (all equal: {c['tokens_equal_all']}, "
+            f"least margin {c['min_margin']:.2e}), bit-equal "
+            f"{c['bit_equal']}; prefill {c['prefill_ms']:.1f} ms, decode "
+            f"{min(c['decode_ms']):.1f}-{max(c['decode_ms']):.1f} ms wall "
+            f"({card})")
+    w = res["whole"]
+    if w is not None:
+        check(w["logits_finite"] and w["tokens_in_vocab"],
+              f"{w['arch']} whole across ranks: non-finite logits or a "
+              f"token out of the vocabulary")
+        gib = lambda xs: ", ".join(f"{b / 2**30:.2f}" for b in xs)  # noqa
+        log(f"serve ranks {w['arch']} whole ({w['params']} params, bf16) on "
+            f"(2, 2): init {w['init_s']:.1f} s (peaks {gib(w['init_peak_bytes'])}"
+            f" GiB a rank), serving peaks {gib(w['peak_bytes'])} GiB a rank, "
+            f"param shards {gib(w['param_shard_bytes'])} GiB, cache shards "
+            f"{gib(w['cache_shard_bytes'])} GiB ({card})")
+        log(f"serve ranks {w['arch']} whole: B {w['batch']} x {w['prompt']} "
+            f"prompt tokens, prefill {w['prefill_ms']:.1f} ms wall; "
+            f"{w['new']} decode steps {w['decode_wall_ms_p50']:.1f} / "
+            f"{w['decode_wall_ms_p95']:.1f} ms wall p50 / p95, "
+            f"{w['decode_event_ms_p50']:.1f} / "
+            f"{w['decode_event_ms_p95']:.1f} ms between CUDA events; "
+            f"{w['decode_tokens_per_s']:.1f} decode tokens/s, "
+            f"{w['tokens_per_s']:.1f} with the prefill; a decode step's NCCL "
+            f"calls {w['steps'][0]['nccl_calls']} and bytes "
+            f"{w['steps'][0]['nccl_bytes']}; rank 0 busy "
+            f"{w['busy_ms']:.1f} ms in a profiled decode step "
+            f"({w['nccl_busy_ms']:.1f} ms of it in NCCL kernels) ({card})")
+        d = res["dryrun"]   # the launcher held its counts to every step's
+        log(f"dry-run {w['arch']} whole decode on (2, 2): calls "
+            f"{d['calls']} and bytes {d['bytes']} == every step's; peak "
+            f"{d['memory']['total_bytes'] / 2**30:.4f} GiB a rank, "
+            + ", ".join(f"{r:.4f}" for r in d["peak_over_measured"])
+            + f" of the ranks' serving peaks; {d['seconds']:.1f} s ({card})")
+    log(f"phase 17: {res['world']} rank(s), {res['phase_s']:.1f} s ({card})")
+    return res
+
+
+# --------------------------------------------------------------------------
 # phase 16: the dry-run of phase 14's cell
 # --------------------------------------------------------------------------
 DRYRUN_PEAK_RATIO = (0.8, 1.25)   # dry-run peak over phase 14's measured
@@ -4097,6 +4209,9 @@ def main() -> None:
 
     log("phase 16: the dry-run of phase 14's cell on fake tensors")
     phase_lm_dryrun(np, torch, card, lm_train["whole"])
+
+    log("phase 17: prefill and decode across ranks, one process a card")
+    phase_lm_serve_ranks(np, torch, card)
     check_no_jax()
 
     print(card, flush=True)  # name, power limit as nvidia-smi gives them

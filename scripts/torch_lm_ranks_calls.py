@@ -51,8 +51,11 @@ MESHES = {4: [(2, 2), (4, 1)], 2: [(2, 1), (1, 2)], 1: [(1, 1)]}
 TIMEOUT_S = 900
 
 
-def launch(world: int, out: str) -> int:
-    """Start the ranks; the first failure's exit code ends them all."""
+def launch(world: int, out: str, script: str = __file__,
+           timeout_s: float = TIMEOUT_S) -> int:
+    """Start the ranks of ``script`` (this file, or another script with
+    the same ``--world`` / ``--out`` / ``--rank`` / ``--init-method``
+    arguments); the first failure's exit code ends them all."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.distributed.process_group import free_port
 
@@ -60,7 +63,7 @@ def launch(world: int, out: str) -> int:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                TORCH_NCCL_ASYNC_ERROR_HANDLING="1")
     procs = [subprocess.Popen(
-        [sys.executable, __file__, "--world", str(world), "--out", out,
+        [sys.executable, script, "--world", str(world), "--out", out,
          "--rank", str(r), "--init-method", init], env=env)
         for r in range(world)]
     t0, failed = time.monotonic(), 0
@@ -68,7 +71,7 @@ def launch(world: int, out: str) -> int:
         while any(p.poll() is None for p in procs):
             failed = next((p.returncode for p in procs
                            if p.returncode not in (None, 0)), 0)
-            if failed or time.monotonic() - t0 > TIMEOUT_S:
+            if failed or time.monotonic() - t0 > timeout_s:
                 failed = failed or 124
                 break
             time.sleep(0.1)

@@ -32,7 +32,12 @@ from a full tensor and :func:`assemble` puts the ranks' shards back
 together; :func:`rank_plan` sets the context the LM's layers read
 (:func:`current_rank_plan`): the process group and the spec of every
 param leaf, from which a layer gathers its ``embed -> data`` shards
-(:meth:`RankPlan.fsdp`).
+(:meth:`RankPlan.fsdp`). For the serving steps across ranks,
+:func:`cache_shards` allocates a rank's shard of each cache leaf (never
+the whole cache), and :func:`kv_layout` names which of the partitioner's
+three K/V cache layouts a sharding is: the slots over ``model`` (decode
+context parallelism), the K/V heads over ``model``, or replicated over
+it.
 """
 
 from __future__ import annotations
@@ -43,13 +48,15 @@ import dataclasses
 from typing import Any
 
 import numpy as np
+import torch
 
-from repro_torch.tree import flatten_with_paths, tree_map, unflatten
+from repro_torch.tree import flatten_with_paths, leaves, tree_map, unflatten
 
 __all__ = ["PartitionRules", "RankPlan", "Sharding", "activation_sharding",
-           "assemble", "batch_partition", "cache_partition",
+           "assemble", "batch_partition", "cache_partition", "cache_shards",
            "constrain_batch", "constrain_seq", "current_rank_plan",
-           "entry_axes", "layer_shardings", "local_shard", "mesh_coords",
+           "entry_axes", "kv_layout", "layer_shardings", "local_shard",
+           "mesh_coords",
            "opt_partition", "params_partition", "rank_plan", "shard_blocks",
            "shard_shape", "spec_for"]
 
@@ -270,6 +277,40 @@ def cache_partition(cache_shapes, mesh, rules: PartitionRules):
                                     flatten_with_paths(cache_shapes)])
 
 
+# the fill of a fresh cache leaf by name (an unwritten slot's position is
+# -1, as ``init_gqa_cache`` writes it); every other leaf starts at zero
+_CACHE_FILL = {"slot_pos": -1}
+
+
+def cache_shards(cache_shapes, shardings, device):
+    """A rank's fresh cache: each leaf of ``cache_shapes`` (``meta``
+    tensors do) allocated at its shard's shape under ``shardings`` (from
+    :func:`cache_partition`) on ``device`` and filled as the whole cache
+    starts, so no rank ever holds the whole of a sharded leaf."""
+    def one(path, leaf, sh):
+        return torch.full(shard_shape(sh, leaf.shape),
+                          _CACHE_FILL.get(_pstr(path[-1]), 0),
+                          dtype=leaf.dtype, device=device)
+
+    return unflatten(cache_shapes, [
+        one(p, leaf, sh) for (p, leaf), sh in zip(
+            flatten_with_paths(cache_shapes), leaves(shardings))])
+
+
+def kv_layout(sharding) -> str:
+    """Which layout :func:`cache_partition` gave a K/V cache leaf (the
+    ``(B, T, KV, hd)`` sharding of one layer, :func:`layer_shardings`):
+    ``"seq"`` when its slots ``T`` split over ``model`` (``T % M == 0``),
+    ``"heads"`` when its K/V heads do (``T % M != 0``, ``KV % M == 0``),
+    else ``"replicated"`` over ``model``."""
+    spec = tuple(sharding.spec) + (None,) * 4
+    if "model" in entry_axes(spec[1]):
+        return "seq"
+    if "model" in entry_axes(spec[2]):
+        return "heads"
+    return "replicated"
+
+
 # --------------------------------------------------------------------------
 # Shards of a rank (the twin's NamedSharding.shard_shape and the cut)
 # --------------------------------------------------------------------------
@@ -364,14 +405,25 @@ class RankPlan:
     """What a layer of the rank step reads: the process group (a
     :class:`repro_torch.distributed.process_group.RankGroups`) and
     ``shardings``, the :class:`Sharding` of every param leaf (the
-    params' tree)."""
+    params' tree). The serving steps add ``cache``, the stacked cache's
+    shardings (:func:`cache_partition`), and ``rows_split``: whether the
+    batch's rows split over ``data`` (as :func:`batch_partition` splits
+    them where the data axis divides the batch) or every data rank holds
+    them all."""
 
     groups: Any
     shardings: Any
+    cache: Any = None
+    rows_split: bool = True
 
     def layer_shardings(self, key: str = "layers"):
         """The shardings of one layer of the stacked ``params[key]``."""
         return layer_shardings(self.shardings[key])
+
+    def kv_layout(self) -> str:
+        """:func:`kv_layout` of the cache's ``k`` (every layer's is the
+        same)."""
+        return kv_layout(layer_shardings(self.cache)["k"])
 
     @property
     def dp(self) -> int:

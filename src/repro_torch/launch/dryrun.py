@@ -9,9 +9,10 @@ Twin of :mod:`repro.launch.dryrun`. Run it as a module:
 
 The twin lowers and compiles GSPMD's per-device program of a step on 512
 placeholder devices. The port's per-device program is the rank step
-(:meth:`repro_torch.launch.steps.LMHarness.make_train_step` on a rank
-mesh), and every rank runs the same program on its own shards, so rank
-0 stands for every device, as GSPMD's one program does. For each cell
+(:meth:`repro_torch.launch.steps.LMHarness.make_train_step`,
+``make_prefill_step`` or ``make_decode_step`` on a rank mesh), and every
+rank runs the same program on its own shards, so rank 0 stands for every
+device, as GSPMD's one program does. For each cell
 :func:`run_cell`
 
   1. joins the ``"fake"`` process group as rank 0 of the mesh's size
@@ -22,9 +23,11 @@ mesh), and every rank runs the same program on its own shards, so rank
   3. builds the step and the partitioner's shardings, outside the fake
      mode (the param shapes draw a key on the host);
   4. makes rank 0's shards of the params and of the optimizer state
-     (``partition.shard_shape``) and the global batch, as fake tensors
-     on ``--device`` (``cuda`` by default: fake CUDA tensors, which touch
-     no card; the tests pass ``cpu``);
+     (train) or of the cache (decode; a prefill makes its own), by
+     ``partition.shard_shape``, and the global batch or decode tokens,
+     as fake tensors on ``--device`` (``cuda`` by default: fake CUDA
+     tensors, which touch no card; the tests pass ``cpu``), and a
+     decode step's position, an int: the last of the shape's context;
   5. runs one step under :func:`repro_torch.op_analysis.analyze_step`:
      flops, bytes, collectives and the live-storage peak;
   6. leaves the group.
@@ -32,11 +35,12 @@ mesh), and every rank runs the same program on its own shards, so rank
 It records the twin's fields (the memory peak, per-device flops and
 bytes, collective bytes by kind, the roofline terms on the H100's
 constants, :mod:`repro_torch.roofline`), with ``analyze_s`` in place of
-``lower_s`` / ``compile_s``. A cell's status is ``ok`` (it ran),
+``lower_s`` / ``compile_s``; prefill and decode cells record them
+with ``n_micro`` 1. A cell's status is ``ok`` (it ran),
 ``skip`` (the twin's documented skip: long_500k on a full-attention
 arch), ``not_ported`` (the rank step raises ROADMAP item 12e-ii's
-refusal: prefill, decode, the families other than dense GQA and MoE, a
-``pod`` axis, heads the ``model`` axis does not divide) or ``fail``
+refusal: the families other than dense GQA and MoE, a ``pod`` axis,
+heads the ``model`` axis does not divide) or ``fail``
 (anything else: a bug, and the run exits 1). Records append to the
 ``--out`` file, which ``repro_torch.benchmarks.roofline`` reads.
 """
@@ -91,20 +95,31 @@ def _parse_variant(arch_id: str, variant: str | None, cfg=None):
     return cfg, harness_kw
 
 
-def _rank_inputs(shardings, like, device):
-    """Rank 0's shards of the params and the optimizer state and the
-    global batch (the rank step cuts its own rows), as empty tensors."""
-    (p_sh, o_sh, _), (p_like, o_like, b_like) = shardings, like
-
+def _rank_inputs(shape, shardings, like, device):
+    """Rank 0's arguments of ``shape``'s step, as empty tensors: its
+    shards of the params and of the optimizer state (train) or of the
+    cache (decode), and the global batch or tokens (the rank step cuts
+    its own rows); a decode step's position is an int, the last of the
+    shape's context."""
     def shards(tree, sh):
         return unflatten(tree, [
             torch.empty(part.shard_shape(s, t.shape), dtype=t.dtype,
                         device=device)
             for t, s in zip(leaves(tree), leaves(sh))])
 
-    batch = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
-                                           device=device), b_like)
-    return shards(p_like, p_sh), shards(o_like, o_sh), batch
+    def whole(tree):
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device=device), tree)
+
+    if shape.kind == "train":
+        (p_sh, o_sh, _), (p_like, o_like, b_like) = shardings, like
+        return shards(p_like, p_sh), shards(o_like, o_sh), whole(b_like)
+    if shape.kind == "prefill":
+        (p_sh, _), (p_like, b_like) = shardings, like
+        return shards(p_like, p_sh), whole(b_like)
+    (p_sh, c_sh, _, _), (p_like, c_like, t_like, _) = shardings, like
+    return (shards(p_like, p_sh), shards(c_like, c_sh), whole(t_like),
+            shape.seq_len - 1)
 
 
 def run_cell(arch_id: str, shape, *, multi_pod: bool = False,
@@ -151,13 +166,13 @@ def run_cell(arch_id: str, shape, *, multi_pod: bool = False,
             step = harness.step_fn(shape, rmesh, shape.kind)
             in_sh, _, like = harness.shardings(shape, rmesh, shape.kind)
             with FakeTensorMode():
-                args = _rank_inputs(in_sh, like, device)
+                args = _rank_inputs(shape, in_sh, like, device)
                 _, cost = analyze_step(step, *args)
         finally:
             pg.shutdown()
         t_analyze = time.time() - t0
-        # only a train step gets here: prefill and decode are refused
-        n_micro = harness.n_microbatches(shape, rmesh)
+        n_micro = (harness.n_microbatches(shape, rmesh)
+                   if shape.kind == "train" else 1)
         terms = roofline_terms(
             flops_per_device=cost.flops,
             bytes_per_device=cost.bytes_accessed,

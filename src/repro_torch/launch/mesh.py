@@ -28,8 +28,11 @@ A mesh runs in one of two ways:
     ``devices`` the
     ranks' devices and ``ranks`` this rank's groups. The train step runs
     on it (FSDP gathers over ``embed -> data``, Megatron TP over
-    ``model``, the expert exchange between ranks; ROADMAP item 12e);
-    prefill and decode across ranks are item 12e-ii and raise.
+    ``model``, the expert exchange between ranks; ROADMAP item 12e), and
+    so do prefill and decode, each rank holding its shard of the cache
+    (the slots over ``model`` where they divide: decode context
+    parallelism), for the dense GQA / MQA and MoE families; the other
+    families and a ``pod`` axis are item 12e-ii and raise.
 
 A mesh over several distinct devices outside a process group raises: the
 twin's program has GSPMD's global semantics (MoE capacity over the whole
@@ -178,13 +181,17 @@ def single_device(mesh: LMMesh) -> torch.device:
 
 
 def refuse_ranks(mesh, what: str) -> None:
-    """Raise for ``what`` (prefill, decode, a family) on a rank mesh:
-    ROADMAP item 12e-ii."""
+    """Raise for ``what`` (a step of a family, or a lever) on a rank mesh:
+    ROADMAP item 12e-ii. The train, prefill and decode steps of the dense
+    GQA / MQA and MoE families run across ranks; the other families'
+    steps, a ``pod`` axis, ``moe_ep`` at prefill and decode and the
+    ``expert_parallel`` lever are refused by
+    :meth:`repro_torch.launch.steps.LMHarness._refuse_across_ranks`."""
     if mesh is not None and getattr(mesh, "is_ranks", False):
         raise NotImplementedError(
             f"{what} across ranks is not ported yet: ROADMAP Queue 1 item "
-            f"12e-ii; the train step of the dense GQA and MoE families "
-            f"runs across ranks")
+            f"12e-ii; the train, prefill and decode steps of the dense GQA "
+            f"and MoE families run across ranks")
 
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar(

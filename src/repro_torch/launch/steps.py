@@ -43,8 +43,26 @@ local MoE capacity follow it. A step runs a logical mesh on one device
   * it returns this rank's ``params`` and ``opt_state`` and the global
     ``loss`` and ``grad_norm``.
 
-Prefill and decode across ranks, and the train step of the families
-other than the dense GQA and MoE ones, are ROADMAP item 12e-ii and raise.
+Prefill and decode run on a rank mesh too, for the same families (dense
+GQA / MQA and MoE, without ``moe_ep`` or the ``expert_parallel`` lever):
+
+  * they take the global batch (or the decode tokens) and cut this
+    rank's rows over ``data`` where the data axis divides the batch (as
+    the twin's input sharding splits it; else every data rank holds
+    every row);
+  * the params are this rank's shards (gathered over ``data`` a layer at
+    a time, Megatron TP over ``model``), and so is the cache: each rank
+    allocates only its shard of every leaf of ``cache_partition``'s
+    layout (:func:`repro_torch.distributed.partition.cache_shards`), the
+    slots over ``model`` where they divide (decode context parallelism),
+    else the K/V heads, else replicated over ``model``;
+  * like the twin's replicated outputs, every rank returns the whole
+    batch's last logits (prefill) or next tokens (decode), with its own
+    cache shards.
+
+The train step of the families other than the dense GQA and MoE ones,
+their prefill and decode, and a ``pod`` axis are ROADMAP item 12e-ii and
+raise.
 """
 
 from __future__ import annotations
@@ -196,9 +214,10 @@ class LMHarness:
 
         return train_step
 
-    def _refuse_across_ranks(self, mesh) -> None:
-        """The families and levers the rank step does not run yet
-        (ROADMAP Queue 1 item 12e-ii), in that item's order."""
+    def _refuse_across_ranks(self, mesh, kind: str = "train") -> None:
+        """The families and levers the rank steps do not run yet
+        (ROADMAP Queue 1 item 12e-ii), in that item's order; ``kind``
+        names the step."""
         cfg = self.cfg
         what = None
         if cfg.mla is not None:
@@ -217,8 +236,10 @@ class LMHarness:
             what = "a mesh with a pod axis"
         elif cfg.moe is not None and self.expert_parallel:
             what = "the expert_parallel lever"
+        elif cfg.moe is not None and cfg.moe_ep and kind != "train":
+            what = "moe_ep"
         if what is not None:
-            refuse_ranks(mesh, f"the train step of {what}")
+            refuse_ranks(mesh, f"the {kind} step of {what}")
 
     def _make_rank_train_step(self, shape: Shape, mesh):
         self._refuse_across_ranks(mesh)
@@ -276,8 +297,12 @@ class LMHarness:
         """``prefill(params, batch) -> (last logits, cache)`` with a fresh
         cache of ``shape`` on ``device`` (default: ``mesh``'s device, or
         ``"cuda"`` without a mesh), under ``mesh``'s activation context
-        when one is given."""
-        refuse_ranks(mesh, "prefill")
+        when one is given. On a rank mesh, ``prefill(params, batch,
+        cache=None)`` takes this rank's param shards and the global
+        batch, and returns the whole batch's last logits and this rank's
+        cache shards (fresh ones unless ``cache`` is given)."""
+        if mesh is not None and mesh.is_ranks:
+            return self._make_rank_serve_step(shape, mesh, "prefill")
         model = self.model
         if device is None:
             device = "cuda" if mesh is None else single_device(mesh)
@@ -295,9 +320,13 @@ class LMHarness:
 
     def make_decode_step(self, shape: Shape, mesh=None):
         """``decode(params, cache, token_in, pos) -> (next token (B, 1)
-        int32, cache)``: one greedy token (a rank mesh raises, item
-        12e-ii)."""
-        refuse_ranks(mesh, "decode")
+        int32, cache)``: one greedy token. On a rank mesh the params and
+        the cache are this rank's shards, ``token_in`` the whole batch's
+        and ``pos`` an int (or a tensor, read on the host once); every
+        rank returns the whole batch's tokens and its new cache
+        shards."""
+        if mesh is not None and mesh.is_ranks:
+            return self._make_rank_serve_step(shape, mesh, "decode")
         model = self.model
         cfg = self.cfg
 
@@ -312,6 +341,56 @@ class LMHarness:
             logits, cache = model.decode_step(params, tin, pos, cache)
             next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             return next_tok[:, None], cache
+
+        return decode
+
+    def _make_rank_serve_step(self, shape: Shape, mesh, kind: str):
+        """The prefill or decode step of ``kind`` on a rank mesh."""
+        self._refuse_across_ranks(mesh, kind)
+        groups = mesh.ranks
+        rules = self.rules(mesh)
+        p_shard = part.params_partition(self.param_shapes(), mesh, rules)
+        c_shapes = self.cache_shapes(shape)
+        c_shard = part.cache_partition(c_shapes, mesh, rules)
+        B = shape.global_batch
+        # the rows split over data where the twin's batch sharding splits
+        # them (``batch_partition``), else every data rank holds them all
+        split = bool(part.batch_partition(
+            self.token_shapes(shape), mesh, rules)["tokens"].spec)
+        plan = part.RankPlan(groups, p_shard, cache=c_shard,
+                             rows_split=split)
+        n_dp, row = groups.size("data"), groups.index("data")
+        rows = slice(row * (B // n_dp), (row + 1) * (B // n_dp)) if split \
+            else slice(None)
+        device = groups.device
+        model = self.model
+
+        def mine(tree):
+            return {k: torch.as_tensor(v)[rows].to(device)
+                    for k, v in tree.items()}
+
+        def whole(x):   # this rank's rows -> the whole batch's
+            return pg.gather(x, 0, groups, "data") if split else x
+
+        if kind == "prefill":
+            @torch.no_grad()
+            def prefill(params, batch, cache=None):
+                if cache is None:
+                    cache = part.cache_shards(c_shapes, c_shard, device)
+                with use_mesh(mesh), part.rank_plan(plan):
+                    logits, cache = model.prefill(params, mine(batch), cache)
+                    logits = whole(model.gather_logits(logits, plan))
+                return logits, cache
+
+            return prefill
+
+        @torch.no_grad()
+        def decode(params, cache, token_in, pos):
+            with use_mesh(mesh), part.rank_plan(plan):
+                logits, cache = model.decode_step(params, mine(token_in),
+                                                  int(pos), cache)
+                tok = whole(model.greedy_rank(logits[:, -1], plan))
+            return tok[:, None], cache
 
         return decode
 

@@ -27,9 +27,13 @@ cache-free call of S > 1 scores the whole sequence in one block under the
 sequence and batch constraints of :mod:`repro_torch.distributed.
 partition`, where the twin shards the queries over ``model``.
 
-:func:`gqa_forward_tp` is the train step's attention across ``model``
+:func:`gqa_forward_tp` is the rank step's attention across ``model``
 ranks (Megatron tensor parallelism): ``wq`` and the K/V heads its query
 heads read column-parallel, ``wo`` row-parallel with one all-reduce.
+With a cache shard it serves prefill and decode on the partitioner's
+layout of the ring; on slots split over ``model`` a decode step combines
+the ranks' partial softmaxes by their log-sum-exp (decode context
+parallelism).
 """
 
 from __future__ import annotations
@@ -283,23 +287,14 @@ def gqa_forward(
     return out.to(x.dtype), new_cache
 
 
-def gqa_forward_tp(p: dict, x, *, cfg: TransformerConfig, positions,
-                   window: int | None, groups):
-    """Cache-free causal self-attention across the ``model`` ranks of
-    ``groups``: ``p`` holds this rank's ``model`` shards (``data``
-    already gathered). Rank ``c`` of ``M`` runs :func:`gqa_forward` on
-    query heads ``c H/M .. (c+1) H/M - 1`` and the K/V heads they read;
-    its ``wo`` rows give a partial output, summed by one all-reduce
-    (:func:`repro_torch.distributed.process_group.reduce_out`). A K/V
-    shard that is not whole heads (MQA, or fewer K/V heads than ranks) is
-    gathered, and a replicated one sliced, the gradient summed over the
-    ranks that read it. Unsharded weights (``attn_tp`` off, or widths the
-    axis does not divide) run the whole block on every rank. Returns
-    (out, None)."""
-    hd = cfg.resolved_head_dim
-    H, KV, g = cfg.n_heads, cfg.n_kv_heads, cfg.q_group
+def _tp_heads(p, cfg: TransformerConfig, groups):
+    """``(hl, lo, tp)``: the query heads ``lo .. lo + hl - 1`` this rank
+    computes, and whether ``wq`` is split over ``model`` (else every
+    rank computes all of them). Raises for what the rank step does not
+    split (ROADMAP item 12e-ii)."""
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
     if p["wq"].shape[1] == H * hd:
-        return gqa_forward(p, x, cfg=cfg, positions=positions, window=window)
+        return H, 0, False
     M = groups.size("model")
     if H % M or "bq" in p or cfg.qk_norm or cfg.mrope:
         raise NotImplementedError(
@@ -307,8 +302,45 @@ def gqa_forward_tp(p: dict, x, *, cfg: TransformerConfig, positions,
             f"q/k norms or M-RoPE) across ranks: ROADMAP Queue 1 item "
             f"12e-ii")
     hl = H // M
-    lo = groups.index("model") * hl
-    kv_lo, kv_hi = lo // g, (lo + hl - 1) // g + 1
+    return hl, groups.index("model") * hl, True
+
+
+def _kv_slice(lo: int, hl: int, g: int) -> tuple[int, int]:
+    """The K/V heads ``[kv_lo, kv_hi)`` query heads ``lo .. lo + hl - 1``
+    read (``g`` query heads a K/V head)."""
+    return lo // g, (lo + hl - 1) // g + 1
+
+
+def gqa_forward_tp(p: dict, x, *, cfg: TransformerConfig, positions,
+                   window: int | None, groups, cache: dict | None = None,
+                   write_pos: int | None = None, layout: str | None = None):
+    """Causal self-attention across the ``model`` ranks of ``groups``:
+    ``p`` holds this rank's ``model`` shards (``data`` already gathered).
+    Rank ``c`` of ``M`` runs :func:`gqa_forward` on query heads ``c H/M
+    .. (c+1) H/M - 1`` and the K/V heads they read; its ``wo`` rows give
+    a partial output, summed by one all-reduce
+    (:func:`repro_torch.distributed.process_group.reduce_out`). A K/V
+    shard that is not whole heads (MQA, or fewer K/V heads than ranks) is
+    gathered, and a replicated one sliced, the gradient summed over the
+    ranks that read it. Unsharded weights (``attn_tp`` off, or widths the
+    axis does not divide) run the whole block on every rank.
+
+    With ``cache`` (this rank's shard of one layer's ring, ``(B, T_l, KV_l,
+    hd)``) and ``write_pos`` (an int) the call is a prefill (S > 1) or a
+    decode step (S == 1) on the cache ``layout`` the partitioner chose
+    (:func:`repro_torch.distributed.partition.kv_layout`); see
+    :func:`_gqa_cached_tp`. Returns (out, new cache shard or None)."""
+    if cache is not None:
+        return _gqa_cached_tp(p, x, cfg=cfg, positions=positions,
+                              window=window, groups=groups, cache=cache,
+                              write_pos=int(write_pos), layout=layout)
+    hd = cfg.resolved_head_dim
+    KV, g = cfg.n_kv_heads, cfg.q_group
+    hl, lo, tp = _tp_heads(p, cfg, groups)
+    if not tp:
+        return gqa_forward(p, x, cfg=cfg, positions=positions, window=window)
+    M = groups.size("model")
+    kv_lo, kv_hi = _kv_slice(lo, hl, g)
     kvl = kv_hi - kv_lo
     if hl % kvl:
         raise NotImplementedError(
@@ -330,6 +362,163 @@ def gqa_forward_tp(p: dict, x, *, cfg: TransformerConfig, positions,
         cfg=dataclasses.replace(cfg, n_heads=hl, n_kv_heads=kvl,
                                 head_dim=hd))
     return pg.reduce_out(out, groups), None
+
+
+def _kv_heads(w, x, cfg: TransformerConfig, groups):
+    """``x @ w`` over every K/V head, ``(B, S, KV, hd)``: a whole-head
+    shard's outputs gathered over ``model``, a partial-head shard's
+    weight gathered first, a replicated weight used as it is."""
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    M = groups.size("model")
+    if w.shape[1] == KV * hd:
+        y = x @ w
+    elif KV % M == 0 and w.shape[1] == (KV // M) * hd:
+        y = pg.gather(x @ w, x.ndim - 1, groups, "model")
+    else:
+        y = x @ pg.gather(w, 1, groups, "model")
+    return _split_heads(y, KV, hd)
+
+
+def _ring_write(cache: dict, k, v, write_pos: int, *, first: int,
+                total: int) -> dict:
+    """The twin's ring update on a shard holding slots ``first .. first +
+    T_l - 1`` of a ring of ``total``: of the ``S`` positions ``write_pos
+    ..`` of ``k`` / ``v`` (B, S, ...), the last ``min(S, total)`` go to
+    slot ``position % total`` where that slot is this shard's. The slots
+    are host integers (``write_pos`` is one), so the writes are slices:
+    no index is read from a tensor. A new dict; ``cache`` is untouched."""
+    S, Tl = k.shape[1], cache["k"].shape[1]
+    n_keep = min(S, total)
+    runs = []            # (src, dst, position, length) of each slice
+    for i in range(S - n_keep, S):
+        p = write_pos + i
+        d = p % total - first
+        if not 0 <= d < Tl:
+            continue
+        if runs and runs[-1][0] + runs[-1][3] == i and (
+                runs[-1][1] + runs[-1][3] == d):
+            runs[-1][3] += 1
+        else:
+            runs.append([i, d, p, 1])
+    if not runs:
+        return cache
+    new = {key: cache[key].clone() for key in ("k", "v", "slot_pos")}
+    for src, dst, p, n in runs:
+        new["k"][:, dst:dst + n] = k[:, src:src + n]
+        new["v"][:, dst:dst + n] = v[:, src:src + n]
+        new["slot_pos"][dst:dst + n] = torch.arange(
+            p, p + n, dtype=torch.int32, device=k.device)
+    return new
+
+
+def _cp_decode(q, k, v, pos_q, pos_k, *, window, q_group: int,
+               scores_bf16: bool, groups):
+    """One decode token's attention over a ring split by slots over
+    ``model``: ``q`` (B, 1, H, hd) every query head, ``k`` / ``v`` (B,
+    T_l, KV, hd) this rank's slots. Each rank scores its slots (the
+    twin's float32 scores, bf16 ones with ``scores_bf16``, the divisor a
+    0-d tensor); the softmax is combined over ``model`` by its log-sum-
+    exp (the max, then the sum of exponentials all-reduced), the weights
+    are cast to the query dtype as the twin casts the softmax, and the
+    ranks' weighted values are summed. A rank with no valid slot adds
+    nothing: its scores sit at ``_NEG_INF`` under the global max, whose
+    exponentials are 0."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, q_group, hd)
+    f32 = torch.float32
+    score_t = torch.bfloat16 if scores_bf16 else f32
+    with ieee_fp32_matmul():
+        scores = torch.einsum("bskgd,btkd->bkgst", qg.to(f32),
+                              k.to(f32)).to(score_t)
+    scores = scores / _scalar(float(np.sqrt(hd)), score_t, q.device)
+    mask = _full_mask(pos_q, pos_k, causal=True, window=window)
+    scores = (scores + mask[:, :, None].to(score_t)).to(f32)
+    mx = torch.amax(scores, dim=-1, keepdim=True).contiguous()
+    pg.all_reduce_(mx, groups, "model", op="max")
+    e = torch.exp(scores - mx)
+    den = torch.sum(e, dim=-1, keepdim=True).contiguous()
+    pg.all_reduce_(den, groups, "model")
+    w = (e / den).to(q.dtype)
+    with ieee_fp32_matmul():
+        out = torch.einsum("bkgst,btkd->bskgd", w.to(f32),
+                           v.to(f32)).contiguous()
+    pg.all_reduce_(out, groups, "model")
+    return out.reshape(B, S, Hq, hd).to(q.dtype)
+
+
+def _gqa_cached_tp(p, x, *, cfg: TransformerConfig, positions, window,
+                   groups, cache: dict, write_pos: int, layout: str):
+    """Prefill or decode across ``model`` ranks on a cache shard, by the
+    partitioner's layout of the ring:
+
+      * ``"heads"``: the shard holds this rank's K/V heads, the ones its
+        query heads read, so the plain tensor-parallel path runs
+        :func:`gqa_forward` with its cache;
+      * ``"replicated"``: every rank holds every K/V head of every slot;
+        it writes them all and attends with its query heads;
+      * ``"seq"``: the shard holds slots ``c T/M .. (c+1) T/M - 1`` of
+        every K/V head. A prefill attends with this rank's query heads
+        over the in-call K/V, then writes the slots it holds of the last
+        ``T`` positions (every K/V head of them: the heads the ranks
+        computed gathered, or all of them computed from the gathered
+        weight). A decode step writes the token into slot ``pos % T`` on
+        the rank that holds it, gathers the query heads, scores every
+        head over each rank's slots and combines them over ``model``
+        (:func:`_cp_decode`); this rank's heads of the result meet its
+        ``wo`` rows.
+
+    ``wo`` stays row-parallel: the partial outputs are summed by one
+    all-reduce. Unsharded weights compute every head on every rank, and
+    then only a ``"seq"`` ring needs the exchange."""
+    hd = cfg.resolved_head_dim
+    H, KV, g = cfg.n_heads, cfg.n_kv_heads, cfg.q_group
+    B, S = x.shape[0], x.shape[1]
+    M, c = groups.size("model"), groups.index("model")
+    hl, lo, tp = _tp_heads(p, cfg, groups)
+    kv_lo, kv_hi = _kv_slice(lo, hl, g)
+    if layout == "heads" or (not tp and layout != "seq"):
+        # K/V heads over model (KV % M == 0) are whole-head shards of wk,
+        # wv and the ring alike: this rank's query heads read its own
+        local = cfg if not tp else dataclasses.replace(
+            cfg, n_heads=hl, n_kv_heads=kv_hi - kv_lo, head_dim=hd)
+        out, new = gqa_forward(p, x, cfg=local, positions=positions,
+                               window=window, cache=cache,
+                               write_pos=write_pos)
+        return (pg.reduce_out(out, groups) if tp else out), new
+    if hl % (kv_hi - kv_lo):
+        raise NotImplementedError(
+            f"{hl} query heads a rank over {kv_hi - kv_lo} K/V heads: "
+            f"ROADMAP Queue 1 item 12e-ii")
+    gl = hl // (kv_hi - kv_lo)     # this rank's query heads a K/V head
+    q = _split_heads(x @ p["wq"], hl, hd)
+    k = _kv_heads(p["wk"], x, cfg, groups)
+    v = _kv_heads(p["wv"], x, cfg, groups)
+    cos, sin = make_rope(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    Tl = cache["k"].shape[1]
+    first, total = (c * Tl, M * Tl) if layout == "seq" else (0, Tl)
+    new = _ring_write(cache, k, v, write_pos, first=first, total=total)
+    scores_bf16 = cfg.attn_scores_bf16
+    if S > 1:   # prefill: this rank's heads over the in-call K/V
+        out = sdpa(q, k[:, :, kv_lo:kv_hi].to(q.dtype),
+                   v[:, :, kv_lo:kv_hi].to(q.dtype), positions, positions,
+                   causal=True, window=window, q_group=gl,
+                   scores_bf16=scores_bf16)
+    elif layout == "seq":
+        q_all = pg.gather(q, 2, groups, "model") if tp else q
+        out = _cp_decode(
+            q_all, new["k"].to(q.dtype), new["v"].to(q.dtype), positions,
+            new["slot_pos"][None].expand(B, Tl), window=window, q_group=g,
+            scores_bf16=scores_bf16, groups=groups)[:, :, lo:lo + hl]
+    else:       # replicated ring: this rank's heads over every slot
+        out = sdpa(q, new["k"][:, :, kv_lo:kv_hi].to(q.dtype),
+                   new["v"][:, :, kv_lo:kv_hi].to(q.dtype), positions,
+                   new["slot_pos"][None].expand(B, Tl), causal=True,
+                   window=window, q_group=gl, scores_bf16=scores_bf16)
+    out = out.reshape(B, S, hl * hd) @ p["wo"]
+    return (pg.reduce_out(out, groups) if tp else out).to(x.dtype), new
 
 
 # --------------------------------------------------------------------------

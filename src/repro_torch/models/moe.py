@@ -19,7 +19,7 @@ buffers, each data row's ``E / n_data`` experts run on what they receive
 (the ``model`` axis's partial products summed as one unsplit product),
 and the results go home the same way.
 
-:func:`moe_forward_rank` is the train step's MoE across ranks (one
+:func:`moe_forward_rank` is the rank step's MoE across ranks (one
 process a device): :func:`moe_forward` with the rank's own hooks for the
 experts and the shared expert. Without ``moe_ep`` it keeps GSPMD's
 global semantics: the microbatch is gathered over ``data`` before
@@ -30,7 +30,8 @@ the rank's own tokens only). With ``moe_ep`` each data row routes its
 own tokens, an all-to-all over ``data`` carries the expert buffers out
 and the results back, and the experts' weights reach their row by one
 all-to-all of their ``embed`` shards. The experts' ``d_ff`` runs
-tensor-parallel over ``model`` (one all-reduce).
+tensor-parallel over ``model`` (one all-reduce). A decode step routes
+droplessly, so each rank routes its own rows.
 """
 
 from __future__ import annotations
@@ -312,12 +313,17 @@ def _shared_tp(p, xf, cfg, groups):
 
 
 def moe_forward_rank(p: dict, shardings: dict, x, cfg: TransformerConfig,
-                     *, plan):
+                     *, plan, dropless: bool = False):
     """x: this rank's rows (B_local, S, d) -> (out (B_local, S, d), aux).
     ``p`` holds this rank's shards of the layer's MoE params and
     ``shardings`` their :class:`~repro_torch.distributed.partition.
     Sharding` (``plan``: the rank step's). ``aux`` is the microbatch's
-    (without ``moe_ep``) or this data row's (with it)."""
+    (without ``moe_ep``) or this data row's (with it).
+
+    ``dropless`` (a decode step) sizes every expert's buffer to hold all
+    of the tokens, so no token's routing depends on another's: the rank
+    routes its own rows alone, as it does where every data rank holds
+    the whole batch (``plan.rows_split`` false)."""
     m: MoEConfig = cfg.moe
     groups = plan.groups
     spec = shardings["w_gate"].spec
@@ -329,6 +335,11 @@ def moe_forward_rank(p: dict, shardings: dict, x, cfg: TransformerConfig,
     if cfg.moe_ep and m.n_experts % n_ed == 0 and cfg.d_ff % n_tp == 0:
         return _moe_ep_rank(p, shardings, x, cfg, plan)
     p = plan.fsdp(p, shardings)
+    if dropless or not plan.rows_split:
+        return moe_forward(
+            p, x, cfg, dropless=dropless,
+            experts=lambda p, eb, cfg: _experts_tp(p, eb, cfg, groups),
+            shared=lambda p, xf: _shared_tp(p, xf, cfg, groups))
     Bl, S = x.shape[0], x.shape[1]
     lo, Tl = groups.index("data") * Bl * S, Bl * S
     T = n_ed * Tl

@@ -33,7 +33,14 @@ after), its gradient is reduce-scattered back to the shard by the
 gather's backward, attention and the MLP run Megatron tensor
 parallelism over ``model``, the embedding lookup and the cross entropy
 are vocab-parallel, and the loss returned is this rank's part of the
-microbatch's (:meth:`DecoderLM._loss_rank`).
+microbatch's (:meth:`DecoderLM._loss_rank`). ``prefill`` and
+``decode_step`` take this rank's rows and cache shards there: each
+layer's attention runs on the partitioner's layout of its ring
+(:func:`repro_torch.models.attention.gqa_forward_tp`), a decode step's
+MoE routes each rank's rows alone (dropless), and the logits are the
+rank's vocab slice, which :meth:`DecoderLM.gather_logits` and
+:meth:`DecoderLM.greedy_rank` turn into the whole vocab's logits or the
+greedy token.
 """
 
 from __future__ import annotations
@@ -379,8 +386,10 @@ class DecoderLM:
         h = rms_norm(x, layer_p["pre_norm"]["scale"], cfg.norm_eps)
         if plan is not None:
             ap = plan.fsdp(layer_p["attn"], plan.layer_shardings()["attn"])
-            return attn.gqa_forward_tp(ap, h, cfg=cfg, positions=positions,
-                                       window=window, groups=plan.groups)
+            return attn.gqa_forward_tp(
+                ap, h, cfg=cfg, positions=positions, window=window,
+                groups=plan.groups, cache=cache, write_pos=write_pos,
+                layout=None if cache is None else plan.kv_layout())
         if cfg.mla is not None:
             return attn.mla_forward(
                 layer_p["attn"], h, cfg=cfg, positions=positions,
@@ -394,18 +403,19 @@ class DecoderLM:
         """``x`` + the MLP or MoE sublayer, and the MoE aux loss."""
         cfg = self.cfg
         h = rms_norm(x, layer_p["pre_mlp_norm"]["scale"], cfg.norm_eps)
+        # decode steps route droplessly (C = T = batch is small);
+        # train / prefill keep GShard capacity semantics
+        dropless = cache is not None and h.shape[1] == 1
         if plan is not None:
             lsh = plan.layer_shardings()
             if cfg.moe:
                 m_out, aux = moe_mod.moe_forward_rank(
-                    layer_p["moe"], lsh["moe"], h, cfg, plan=plan)
+                    layer_p["moe"], lsh["moe"], h, cfg, plan=plan,
+                    dropless=dropless)
                 return x + m_out, aux
             mp = plan.fsdp(layer_p["mlp"], lsh["mlp"])
             return x + mlp_forward_tp(mp, h, cfg, plan.groups), self._zero(x)
         if cfg.moe:
-            # decode steps route droplessly (C = T = batch is small);
-            # train / prefill keep GShard capacity semantics
-            dropless = cache is not None and h.shape[1] == 1
             if cfg.moe_ep:
                 m_out, aux = moe_mod.moe_forward_ep(
                     layer_p["moe"], h, cfg, dropless=dropless, mesh=mesh)
@@ -575,18 +585,26 @@ class DecoderLM:
 
     def _unembed(self, params, x):
         cfg = self.cfg
+        plan = part.current_rank_plan()
+        if plan is not None:
+            return self._unembed_rank(params, x, plan)
         if cfg.tie_embeddings:
             logits = x @ params["embed"]["table"].T
         else:
             logits = x @ params["unembed"]["table"]
-        if cfg.padded_vocab != cfg.vocab_size:
-            # mask pad columns: softmax / argmax never select them
-            pad = torch.arange(logits.shape[-1],
-                               device=logits.device) >= cfg.vocab_size
-            logits = torch.where(pad, torch.full(
-                (), -2.0 ** 20, dtype=logits.dtype, device=logits.device),
-                logits)
-        return logits
+        return self._mask_pad(logits, 0)
+
+    def _mask_pad(self, logits, lo: int):
+        """``logits`` of vocab ids ``lo ..`` with the pad columns (ids past
+        the vocab) masked: softmax / argmax never select them."""
+        cfg = self.cfg
+        if cfg.padded_vocab == cfg.vocab_size:
+            return logits
+        pad = torch.arange(lo, lo + logits.shape[-1],
+                           device=logits.device) >= cfg.vocab_size
+        return torch.where(pad, torch.full(
+            (), -2.0 ** 20, dtype=logits.dtype, device=logits.device),
+            logits)
 
     # ---------------- the rank step ----------------
     def _embed_rank(self, params, batch_in, plan):
@@ -607,6 +625,55 @@ class DecoderLM:
                                     device=table.device))
         return pg.reduce_out(x, plan.groups)
 
+    def _head_weight(self, params, plan):
+        """``(w, lo)``: this rank's head ``(d, V_l)``, gathered over
+        ``data``, and the first vocab id of its slice: over ``model`` the
+        slice the partitioner gives the rank (the whole vocab, ``lo`` 0,
+        where it is not split)."""
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            w = plan.fsdp(params["embed"], plan.shardings["embed"])["table"].T
+        else:
+            w = plan.fsdp(params["unembed"],
+                          plan.shardings["unembed"])["table"]
+        vl = w.shape[1]
+        return w, (plan.groups.index("model") * vl
+                   if vl != cfg.padded_vocab else 0)
+
+    def _unembed_rank(self, params, x, plan):
+        """This rank's vocab slice of the logits of ``x``, pad columns
+        masked (:meth:`_head_weight`)."""
+        w, lo = self._head_weight(params, plan)
+        return self._mask_pad(x @ w, lo)
+
+    def gather_logits(self, logits, plan):
+        """The whole vocab's logits from each rank's slice
+        (:meth:`_unembed_rank`): gathered over ``model`` where it splits
+        the vocab."""
+        if logits.shape[-1] == self.cfg.padded_vocab:
+            return logits
+        return pg.gather(logits, logits.ndim - 1, plan.groups, "model")
+
+    def greedy_rank(self, logits, plan):
+        """The greedy tokens (int32) of ``logits`` (..., V_l), each rank's
+        vocab slice: the argmax over the slices, ties to the lowest index
+        as ``jnp.argmax`` sends them. Each rank's first maximum and its
+        value are gathered over ``model``; the first rank holding the
+        largest value wins, and its slice's indices are the lowest."""
+        vl = logits.shape[-1]
+        if vl == self.cfg.padded_vocab:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        if self.cfg.padded_vocab >= 2 ** 24:
+            raise ValueError("vocab ids past 2^24 do not ride a float32")
+        groups = plan.groups
+        idx = torch.argmax(logits, dim=-1, keepdim=True)
+        val = torch.gather(logits, -1, idx).to(torch.float32)
+        gidx = (idx + groups.index("model") * vl).to(torch.float32)
+        both = pg.gather(torch.stack([val[..., 0], gidx[..., 0]])[None], 0,
+                         groups, "model")          # (M, 2, ...)
+        best = torch.argmax(both[:, 0], dim=0, keepdim=True)
+        return torch.gather(both[:, 1], 0, best)[0].to(torch.int32)
+
     def _head_rank(self, hp, x, targets, plan):
         """Final norm, logits and the vocab-parallel cross entropy of this
         rank's rows: ``(sum of CE + z_weight sum of logz^2) / N``, ``N``
@@ -616,21 +683,11 @@ class DecoderLM:
         cfg = self.cfg
         groups = plan.groups
         x = rms_norm(x, hp["final_norm"]["scale"], cfg.norm_eps)
-        if cfg.tie_embeddings:
-            w = plan.fsdp(hp["embed"], plan.shardings["embed"])["table"].T
-        else:
-            w = plan.fsdp(hp["unembed"],
-                          plan.shardings["unembed"])["table"]
+        w, lo = self._head_weight(hp, plan)
         vl = w.shape[1]
         sharded = vl != cfg.padded_vocab
-        lo = groups.index("model") * vl if sharded else 0
-        logits = (pg.copy_in(x, groups) if sharded else x) @ w
-        if cfg.padded_vocab != cfg.vocab_size:
-            pad = torch.arange(lo, lo + vl,
-                               device=logits.device) >= cfg.vocab_size
-            logits = torch.where(pad, torch.full(
-                (), -2.0 ** 20, dtype=logits.dtype, device=logits.device),
-                logits)
+        logits = self._mask_pad(
+            (pg.copy_in(x, groups) if sharded else x) @ w, lo)
         lf = logits.to(torch.float32)
         t = targets.to(torch.int64) - lo
         if sharded:
@@ -683,7 +740,10 @@ class DecoderLM:
         return ce + aux, dict(parts, aux=aux)
 
     def prefill(self, params, batch_in, cache):
-        """Populate caches; returns (last-token logits (B,1,V), cache)."""
+        """Populate caches; returns (last-token logits (B,1,V), cache).
+        In the rank step the rows, the cache and the returned cache are
+        this rank's, and the logits its vocab slice
+        (:meth:`_unembed_rank`)."""
         cfg = self.cfg
         x = self._embed(params, batch_in)
         B, S = x.shape[0], x.shape[1]
@@ -696,7 +756,8 @@ class DecoderLM:
     def decode_step(self, params, token_in, pos, cache):
         """One decode step. token_in: {'tokens' (B,1) | 'embeds' (B,1,d),
         optional 'mrope_positions' (3,B,1)}; pos: the absolute position
-        (an int). Returns (logits (B,1,V), new_cache)."""
+        (an int). Returns (logits (B,1,V), new_cache); in the rank step
+        as :meth:`prefill` returns them there."""
         cfg = self.cfg
         x = self._embed(params, token_in)
         B = x.shape[0]

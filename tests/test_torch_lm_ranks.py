@@ -654,11 +654,37 @@ def test_distinct_devices_outside_a_process_group_raise():
         tmesh.make_rank_mesh(_fake_rank_mesh().ranks)
 
 
+def _fake_pod_mesh():
+    groups = pg.RankGroups(("pod", "data", "model"), (1, 2, 2), 0,
+                           torch.device("cpu"), {})
+    return tmesh.LMMesh(groups.axis_names, groups.sizes, ("cpu",) * 4,
+                        ranks=groups)
+
+
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 def test_serving_steps_across_ranks_raise(kind):
-    h = LMHarness("granite-3-2b", cfg=_cfg("granite-3-2b"))
+    """Prefill and decode run across ranks for the dense GQA / MQA and
+    MoE families (``tests/test_torch_lm_serve_ranks.py``); for the other
+    families, with ``moe_ep`` and on a mesh with a pod axis they still
+    raise, naming item 12e-ii, before any collective."""
     sh = Shape("t", S, B, kind)
-    with pytest.raises(NotImplementedError, match="item 12e-ii"):
+    for arch in ("granite-3-2b", "granite-20b", "mixtral-8x7b",
+                 "llama4-scout-17b-a16e"):
+        h = LMHarness(arch, cfg=_cfg(arch))
+        assert callable(h.step_fn(sh, _fake_rank_mesh(), kind))
+        with pytest.raises(NotImplementedError,
+                           match=f"the {kind} step of a mesh with a pod "
+                                 f"axis.*item 12e-ii"):
+            h.step_fn(sh, _fake_pod_mesh(), kind)
+    for arch in ("minicpm3-4b", "gemma3-12b", "qwen2-vl-2b", "zamba2-1.2b",
+                 "rwkv6-7b", "whisper-large-v3"):
+        h = LMHarness(arch, cfg=tconfigs.get_arch(arch).REDUCED)
+        with pytest.raises(NotImplementedError,
+                           match=f"the {kind} step of .*item 12e-ii"):
+            h.step_fn(sh, _fake_rank_mesh(), kind)
+    h = LMHarness("mixtral-8x7b", cfg=_cfg("mixtral-8x7b", moe_ep=True))
+    with pytest.raises(NotImplementedError,
+                       match=f"the {kind} step of moe_ep.*item 12e-ii"):
         h.step_fn(sh, _fake_rank_mesh(), kind)
 
 
