@@ -187,17 +187,20 @@ in phases that each exit non-zero on failure:
    process a card, ``min(4, visible cards)`` of them (4, 2 or 1), each
    running ``LMHarness.make_train_step`` on its shards of a rank mesh
    (FSDP over ``data``, tensor parallelism over ``model``, the expert
-   all-to-all): a float32 granite-3-2b 2-layer cut and a mixtral-8x7b MoE
-   layer (``moe_ep``) at full width on ``(2, 2)`` and ``(4, 1)`` (two
-   cards: ``(2, 1)``, ``(1, 2)``; one: ``(1, 1)``), each held to the
-   one-card logical step of the same mesh (loss rel 1e-5, grad norm 1e-4,
-   Adam's m and v within ``grads_close``, the params within Adam's
-   first-step bound; on one rank bit for bit); with four cards
-   granite-3-2b whole in bf16 on ``(4, 1)``, B 8 x S 512, ``micro_rows``
-   2, 4 steps: per step loss, grad norm, wall and CUDA-event ms and the
-   NCCL bytes by kind, each rank's memory peak; the loss must fall; and
-   the dry-run of that cell (below) counts the calls and bytes the ranks
-   counted, exactly, its peak printed beside theirs. With
+   all-to-all; with a ``pod`` axis the batch over ``(pod, data)`` and
+   every gradient leaf summed over ``pod``): a float32 granite-3-2b
+   2-layer cut and a mixtral-8x7b MoE layer (``moe_ep``) at full width on
+   ``(2, 2)``, ``(4, 1)``, ``(2, 2, 1)`` and ``(2, 1, 2)`` (two cards:
+   ``(2, 1)``, ``(1, 2)``; one: ``(1, 1)`` and the pod mesh ``(1, 1,
+   1)``), each held to the one-card logical step of the same mesh (loss
+   rel 1e-5, grad norm 1e-4, Adam's m and v within ``grads_close``, the
+   params within Adam's first-step bound; on one rank bit for bit); with
+   four cards granite-3-2b whole in bf16 on ``(4, 1)`` and on ``(2, 2,
+   1)``, B 8 x S 512, ``micro_rows`` 2, 4 steps: per step loss, grad
+   norm, wall and CUDA-event ms and the NCCL calls and bytes by kind and
+   by axis (the pod all-reduce apart), each rank's memory peak; the loss
+   must fall; and the dry-run of each cell (below) counts the calls and
+   bytes the ranks counted, exactly, its peak printed beside theirs. With
    fewer cards a line names the runs that need four. Any rank's failure
    fails the run;
 16. runs the dry-run of phase 14's cell (``repro_torch.launch.dryrun``:
@@ -215,8 +218,10 @@ in phases that each exit non-zero on failure:
    its shards of the params and of the cache (the slots over ``model``:
    decode context parallelism): float32 cuts at full width of
    granite-3-2b (2 layers), granite-20b (2 layers, MQA) and mixtral-8x7b
-   (2 layers, MoE, window 4096) on ``(2, 2)``, ``(4, 1)`` and ``(1, 4)``
-   (two cards: ``(2, 1)``, ``(1, 2)``; one: ``(1, 1)``), B 4 x S 512
+   (2 layers, MoE, window 4096) on ``(2, 2)``, ``(4, 1)``, ``(1, 4)``,
+   ``(2, 2, 1)`` and ``(2, 1, 2)`` (the last two with a ``pod`` axis: the
+   rows and the cache over ``(pod, data)``; two cards: ``(2, 1)``, ``(1,
+   2)``; one: ``(1, 1)`` and ``(1, 1, 1)``), B 4 x S 512
    prefill and 8 decode steps teacher-forced on the one-card run's
    tokens, each held to the one-card logical steps (logits and the
    gathered cache within 1e-5 of each tensor's scale, ``|d| <= 1e-5
@@ -3813,15 +3818,17 @@ def phase_lm_train(np, torch, card) -> dict:
 def phase_lm_ranks(np, torch, card) -> dict:
     """``scripts/torch_lm_ranks_calls.py`` on the visible cards (at most
     four): its ranks' float32 cases against the one-card logical step
-    and, with four, granite-3-2b whole on ``(4, 1)``."""
+    and, with four, granite-3-2b whole on ``(4, 1)`` and ``(2, 2, 1)``."""
     import os
 
     n_cards = torch.cuda.device_count()
     world = 4 if n_cards >= 4 else (2 if n_cards >= 2 else 1)
     if world < 4:
-        log(f"phase 15 on {n_cards} card(s): the (2, 2) and (4, 1) rank "
-            f"steps and granite-3-2b whole on (4, 1) need four cards; "
-            f"this run holds the NCCL path on {world} rank(s)")
+        log(f"phase 15 on {n_cards} card(s): the (2, 2), (4, 1), (2, 2, 1) "
+            f"and (2, 1, 2) rank steps and granite-3-2b whole on (4, 1) and "
+            f"(2, 2, 1) need four cards; this run holds the NCCL path on "
+            f"{world} rank(s)" + (", on (1, 1) and (1, 1, 1)"
+                                  if world == 1 else ""))
     free_card(torch)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
@@ -3837,10 +3844,10 @@ def phase_lm_ranks(np, torch, card) -> dict:
         res = json.loads(out.read_text())
     res["phase_s"] = time.perf_counter() - t0
     for c in res["cases"]:
-        mesh = f"{c['mesh'][0]} x {c['mesh'][1]}"
+        mesh = " x ".join(map(str, c["mesh"]))
         if world == 1:
-            check(c["bit_equal"], f"{c['what']} on one NCCL rank is not "
-                  f"the one-process step bit for bit")
+            check(c["bit_equal"], f"{c['what']} on one NCCL rank ({mesh}) "
+                  f"is not the one-process step bit for bit")
         else:
             check(c["loss_rel"] <= LOSS_RTOL and c["norm_rel"] <= GRAD_RTOL
                   and max(c["m_worst"], c["v_worst"], c["new_worst"])
@@ -3852,19 +3859,24 @@ def phase_lm_ranks(np, torch, card) -> dict:
             f"{c['v_worst']:.4f} x tol, params {c['new_worst']:.4f} x the "
             f"first-step bound, bit-equal {c['bit_equal']}; step "
             f"{c['wall_ms']:.1f} ms, NCCL bytes {c['nccl_bytes']} ({card})")
-    w = res["whole"]
-    if w is not None:
+    for w, d in ((res["whole"], res.get("dryrun")),
+                 (res.get("whole_pod"), res.get("dryrun_pod"))):
+        if w is None:
+            continue
+        mesh = " x ".join(map(str, w["mesh"]))
         check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
                   for s in w["steps"]), f"non-finite whole steps: {w}")
         check(w["first_batch_after"] < w["steps"][0]["loss"],
-              f"the loss did not fall across ranks: "
+              f"the loss did not fall across ranks on {mesh}: "
               f"{w['steps'][0]['loss']:.4f} -> {w['first_batch_after']:.4f}")
         for i, s in enumerate(w["steps"]):
-            log(f"ranks {LM_ARCH} whole (bf16) on 4 x 1, step {i}: loss "
+            log(f"ranks {LM_ARCH} whole (bf16) on {mesh}, step {i}: loss "
                 f"{s['loss']:.4f}, grad norm {s['grad_norm']:.4f}, wall "
                 f"{s['wall_ms']:.1f} ms, {s['event_ms']:.1f} ms between "
-                f"CUDA events, NCCL bytes {s['nccl_bytes']} ({card})")
-        log(f"ranks {LM_ARCH} whole: {w['n_micro']} microbatch(es) a rank, "
+                f"CUDA events, NCCL calls {s['nccl_calls']}, bytes "
+                f"{s['nccl_bytes']}, by axis {s['nccl_axis_bytes']} ({card})")
+        log(f"ranks {LM_ARCH} whole on {mesh}: {w['n_micro']} "
+            f"microbatch(es) a rank, "
             f"init {w['init_s']:.2f} s (peaks "
             + ", ".join(f"{b / 2**30:.2f}" for b in w["init_peak_bytes"])
             + " GiB a rank), step peaks "
@@ -3872,11 +3884,13 @@ def phase_lm_ranks(np, torch, card) -> dict:
             + " GiB a rank, param shards "
             + ", ".join(f"{b / 2**30:.2f}" for b in w["param_shard_bytes"])
             + f" GiB; rank 0 busy {w['busy_ms']:.1f} ms in a profiled step "
-            f"({w['nccl_busy_ms']:.1f} ms of it in NCCL kernels); the first "
-            f"batch's loss {w['steps'][0]['loss']:.4f} -> "
+            f"({w['nccl_busy_ms']:.1f} ms of it in NCCL kernels: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+                w["nccl_ms_by_kernel"].items()))
+            + f"); the first batch's loss {w['steps'][0]['loss']:.4f} -> "
             f"{w['first_batch_after']:.4f} ({card})")
-        d = res["dryrun"]   # the launcher held its counts to every step's
-        log(f"dry-run {LM_ARCH} whole on (4, 1): calls {d['calls']} and "
+        # the launcher held the dry-run's counts to every step's
+        log(f"dry-run {LM_ARCH} whole on {mesh}: calls {d['calls']} and "
             f"bytes {d['bytes']} == every step's; peak "
             f"{d['memory']['total_bytes'] / 2**30:.4f} GiB a rank, "
             + ", ".join(f"{r:.4f}" for r in d["peak_over_measured"])
@@ -3898,10 +3912,11 @@ def phase_lm_serve_ranks(np, torch, card) -> dict:
     n_cards = torch.cuda.device_count()
     world = 4 if n_cards >= 4 else (2 if n_cards >= 2 else 1)
     if world < 4:
-        log(f"phase 17 on {n_cards} card(s): the (2, 2), (4, 1) and (1, 4) "
-            f"prefill and decode steps and mixtral-8x7b whole in bf16 on "
-            f"(2, 2) need four cards; this run holds the NCCL path on "
-            f"{world} rank(s)")
+        log(f"phase 17 on {n_cards} card(s): the (2, 2), (4, 1), (1, 4), "
+            f"(2, 2, 1) and (2, 1, 2) prefill and decode steps and "
+            f"mixtral-8x7b whole in bf16 on (2, 2) need four cards; this "
+            f"run holds the NCCL path on {world} rank(s)"
+            + (", on (1, 1) and (1, 1, 1)" if world == 1 else ""))
     free_card(torch)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
@@ -3918,7 +3933,7 @@ def phase_lm_serve_ranks(np, torch, card) -> dict:
         res = json.loads(out.read_text())
     res["phase_s"] = time.perf_counter() - t0
     for c in res["cases"]:
-        mesh = f"({c['mesh'][0]}, {c['mesh'][1]})"
+        mesh = str(tuple(c["mesh"]))
         if world == 1:
             check(c["bit_equal"], f"{c['what']} on one NCCL rank is not "
                   f"the one-card prefill and decode bit for bit: {c}")

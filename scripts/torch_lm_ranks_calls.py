@@ -5,8 +5,9 @@
 Starts ``N`` NCCL ranks, one process a card (default: ``min(4, visible
 cards)``), on ``tcp://localhost:<free port>``, watches them and ends them
 all when one fails (exit nonzero). Each rank runs, on the meshes its
-world allows (4: ``(2, 2)`` and ``(4, 1)``; 2: ``(2, 1)`` and ``(1, 2)``;
-1: ``(1, 1)``):
+world allows (4: ``(2, 2)`` and ``(4, 1)`` of ``("data", "model")`` and
+``(2, 2, 1)`` and ``(2, 1, 2)`` of ``("pod", "data", "model")``; 2: ``(2,
+1)`` and ``(1, 2)``; 1: ``(1, 1)`` and ``(1, 1, 1)``):
 
 * granite-3-2b at full width cut to 2 layers and a mixtral-8x7b MoE
   layer (``moe_ep`` on) at full width, float32, one train step of
@@ -14,13 +15,17 @@ world allows (4: ``(2, 2)`` and ``(4, 1)``; 2: ``(2, 1)`` and ``(1, 2)``;
   params and Adam's moments and holds them to the one-card logical step
   of the same mesh at the CPU tests' tolerances (on one rank: bit for
   bit);
-* with 4 ranks, granite-3-2b whole in bf16 on ``(4, 1)``: B 8 x S 512,
+* with 4 ranks, granite-3-2b whole in bf16 on ``(4, 1)`` and on ``(2,
+  2, 1)`` (the batch over ``(pod, data)``, every gradient leaf summed
+  over ``pod``): B 8 x S 512,
   ``micro_rows`` 2, 4 steps and a fifth on the first batch (its loss
   must be below the first step's); per step the wall and CUDA-event ms,
   the NCCL bytes by kind (``process_group.BYTES``), per rank the memory
-  peak of the sharded init and of the steps; rank 0's busy ms in a sixth step under ``torch.profiler``, and
-  the part of it in NCCL's kernels; then, once the ranks have ended, the
-  launcher runs the dry-run of that cell (``repro_torch.launch.dryrun``:
+  peak of the sharded init and of the steps; rank 0's busy ms in a sixth
+  step under ``torch.profiler``, the part of it in NCCL's kernels and
+  that part by kernel (the all-reduces apart: on ``(2, 2, 1)`` nearly
+  all of their bytes are the pod sum); then, once the ranks have ended, the
+  launcher runs the dry-run of each cell (``repro_torch.launch.dryrun``:
   rank 0's step on fake CUDA tensors under the fake process group),
   whose collective calls and bytes by kind must equal every measured
   step's, and sets its live-storage peak beside the ranks' peaks.
@@ -47,7 +52,9 @@ CUT_B, CUT_S = 8, 64        # the float32 cases' batch and sequence
 WHOLE_S, WHOLE_B = 512, 8   # granite-3-2b whole: phase 14's shape
 WHOLE_MICRO_ROWS, WHOLE_STEPS = 2, 4
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
-MESHES = {4: [(2, 2), (4, 1)], 2: [(2, 1), (1, 2)], 1: [(1, 1)]}
+MESHES = {4: [(2, 2), (4, 1), (2, 2, 1), (2, 1, 2)], 2: [(2, 1), (1, 2)],
+          1: [(1, 1), (1, 1, 1)]}
+WHOLE_MESHES = [(4, 1), (2, 2, 1)]     # granite-3-2b whole, four ranks
 TIMEOUT_S = 900
 
 
@@ -83,6 +90,21 @@ def launch(world: int, out: str, script: str = __file__,
                 p.kill()
             p.wait()
     return failed
+
+
+def axis_names(mesh) -> tuple:
+    """``("data", "model")``, or with a leading ``"pod"`` on three sizes."""
+    return ("pod", "data", "model")[-len(mesh):]
+
+
+def logical_mesh(sizes, dev):
+    """The one-card logical mesh of a rank mesh's shape (the reference)."""
+    from repro_torch.launch.mesh import LMMesh
+
+    n = 1
+    for size in sizes:
+        n *= size
+    return LMMesh(axis_names(sizes), tuple(sizes), (dev,) * n)
 
 
 def cfg_of(configs, torch, arch, **change):
@@ -132,7 +154,7 @@ def f32_case(np, torch, groups, arch, cfg, what) -> dict:
     from repro_torch.core import prng
     from repro_torch.data import lm
     from repro_torch.distributed import process_group as pg
-    from repro_torch.launch.mesh import make_host_mesh, make_rank_mesh
+    from repro_torch.launch.mesh import make_rank_mesh
     from repro_torch.launch.steps import LMHarness
     from repro_torch.tree import leaves
 
@@ -173,7 +195,7 @@ def f32_case(np, torch, groups, arch, cfg, what) -> dict:
     # the reference: the one-card logical mesh of the same shape
     t0 = time.perf_counter()
     full = h.model.init(prng.key(1), device=dev)
-    lmesh = make_host_mesh(*groups.sizes, devices=[dev])
+    lmesh = logical_mesh(groups.sizes, dev)
     rnew, ropt, rmet = h.make_train_step(shape, lmesh)(
         full, h.opt.init(full), batch)
     del full
@@ -205,7 +227,7 @@ def f32_case(np, torch, groups, arch, cfg, what) -> dict:
 
 
 def whole_case(np, torch, groups) -> dict:
-    """granite-3-2b whole, bf16, on the (4, 1) rank mesh."""
+    """granite-3-2b whole, bf16, on a four-rank mesh (``WHOLE_MESHES``)."""
     import torch.distributed as dist
 
     from repro_torch import configs
@@ -254,7 +276,8 @@ def whole_case(np, torch, groups) -> dict:
                       "wall_ms": (time.perf_counter() - t0) * 1e3,
                       "event_ms": start.elapsed_time(end),
                       "nccl_bytes": dict(pg.BYTES),
-                      "nccl_calls": dict(pg.CALLS)})
+                      "nccl_calls": dict(pg.CALLS),
+                      "nccl_axis_bytes": dict(pg.AXIS_BYTES)})
     peak = torch.cuda.max_memory_allocated(dev)
     # one more step under torch.profiler: the card's busy time, and the
     # share of it in NCCL's kernels
@@ -265,8 +288,9 @@ def whole_case(np, torch, groups) -> dict:
         torch.cuda.synchronize()
     events = prof.key_averages()
     busy_ms = sum(getattr(e, "device_time_total", 0) for e in events) / 1e3
-    nccl_ms = sum(getattr(e, "device_time_total", 0) for e in events
-                  if "nccl" in e.key.lower()) / 1e3
+    nccl = {e.key: getattr(e, "device_time_total", 0) / 1e3
+            for e in events if "nccl" in e.key.lower()}
+    nccl_ms = sum(nccl.values())
     local_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
     peaks = [None] * groups.world
     dist.all_gather_object(peaks, peak)
@@ -274,17 +298,21 @@ def whole_case(np, torch, groups) -> dict:
     dist.all_gather_object(held, local_bytes)
     init_peaks = [None] * groups.world
     dist.all_gather_object(init_peaks, init_peak)
-    return {"params": sum(t.numel() for t in leaves(h.param_shapes())),
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+    return {"mesh": list(groups.sizes),
+            "params": sum(t.numel() for t in leaves(h.param_shapes())),
             "n_micro": h.n_microbatches(shape, mesh), "init_s": init_s,
             "steps": steps[:WHOLE_STEPS],
             "first_batch_after": steps[-1]["loss"],
             "busy_ms": busy_ms, "nccl_busy_ms": nccl_ms,
+            "nccl_ms_by_kernel": nccl,
             "peak_bytes": peaks, "param_shard_bytes": held,
             "init_peak_bytes": init_peaks}
 
 
 def dryrun_whole(whole) -> dict:
-    """The dry-run of ``whole_case``'s cell on ``(4, 1)``: its collective
+    """The dry-run of ``whole_case``'s cell on its mesh: its collective
     calls and bytes by kind (``process_group``'s convention) must equal
     each measured step's; its peak goes beside the ranks'."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -294,7 +322,7 @@ def dryrun_whole(whole) -> dict:
     t0 = time.perf_counter()
     rec = dryrun.run_cell(
         "granite-3-2b", Shape("ranks_whole", WHOLE_S, WHOLE_B, "train"),
-        mesh=(4, 1), variant=f"micro_rows={WHOLE_MICRO_ROWS}",
+        mesh=tuple(whole["mesh"]), variant=f"micro_rows={WHOLE_MICRO_ROWS}",
         device="cuda", verbose=False)
     if rec["status"] != "ok":
         raise SystemExit(f"the dry-run of the whole cell: {rec}")
@@ -305,7 +333,8 @@ def dryrun_whole(whole) -> dict:
     for i, step in enumerate(whole["steps"]):
         if step["nccl_calls"] != calls or step["nccl_bytes"] != nbytes:
             raise SystemExit(
-                f"step {i}: the ranks counted {step['nccl_calls']} calls, "
+                f"{whole['mesh']} step {i}: the ranks counted "
+                f"{step['nccl_calls']} calls, "
                 f"{step['nccl_bytes']} bytes; the dry-run {calls}, {nbytes}")
     return {"calls": calls, "bytes": nbytes, "memory": rec["memory"],
             "cost": rec["cost"], "roofline": rec["roofline"],
@@ -328,10 +357,10 @@ def rank_main(args) -> None:
     dev = torch.device("cuda", args.rank)
     meshes = MESHES[world]
     groups = {meshes[0]: pg.init_ranks(
-        ("data", "model"), meshes[0], rank=args.rank,
+        axis_names(meshes[0]), meshes[0], rank=args.rank,
         init_method=args.init_method, device=dev, timeout_s=TIMEOUT_S)}
     for m in meshes[1:]:
-        groups[m] = pg.mesh_groups(("data", "model"), m, dev,
+        groups[m] = pg.mesh_groups(axis_names(m), m, dev,
                                    timeout_s=TIMEOUT_S)
     cases = []
     t0 = time.perf_counter()
@@ -344,13 +373,14 @@ def rank_main(args) -> None:
             cases.append(f32_case(np, torch, g, "mixtral-8x7b", cfg_of(
                 configs, torch, "mixtral-8x7b", n_layers=1, moe_ep=True),
                 "mixtral-8x7b f32 MoE layer, moe_ep"))
-        whole = (whole_case(np, torch, groups[(4, 1)]) if world == 4
-                 else None)
+        wholes = ([whole_case(np, torch, groups[m]) for m in WHOLE_MESHES]
+                  if world == 4 else [None, None])
     finally:
         pg.shutdown()
     if args.rank == 0:
         res = {"world": world, "meshes": [list(m) for m in meshes],
-               "cases": cases, "whole": whole,
+               "cases": cases, "whole": wholes[0],
+               "whole_pod": wholes[1],
                "seconds": time.perf_counter() - t0,
                "card": torch.cuda.get_device_name(0)}
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -385,6 +415,7 @@ def main(argv=None) -> None:
     res = json.loads(pathlib.Path(args.out).read_text())
     if res["whole"] is not None:
         res["dryrun"] = dryrun_whole(res["whole"])
+        res["dryrun_pod"] = dryrun_whole(res["whole_pod"])
         pathlib.Path(args.out).write_text(json.dumps(res))
     print(json.dumps(res), flush=True)
 

@@ -5,8 +5,10 @@
 Starts ``N`` NCCL ranks, one process a card (default: ``min(4, visible
 cards)``), on ``tcp://localhost:<free port>``, watches them and ends them
 all when one fails (exit nonzero). Each rank runs, on the meshes its
-world allows (4: ``(2, 2)``, ``(4, 1)`` and ``(1, 4)``; 2: ``(2, 1)`` and
-``(1, 2)``; 1: ``(1, 1)``):
+world allows (4: ``(2, 2)``, ``(4, 1)`` and ``(1, 4)`` of ``("data",
+"model")`` and ``(2, 2, 1)`` and ``(2, 1, 2)`` of ``("pod", "data",
+"model")``; 2: ``(2, 1)`` and ``(1, 2)``; 1: ``(1, 1)`` and ``(1, 1,
+1)``):
 
 * granite-3-2b (2 layers), granite-20b (2 layers: MQA, GELU) and
   mixtral-8x7b (2 layers: MoE, window 4096) at full width in float32:
@@ -61,7 +63,8 @@ WHOLE_ARCH = "mixtral-8x7b"
 WHOLE_B, WHOLE_S, WHOLE_DEC = 8, 512, 32
 TOL = 1e-5                  # logits and cache, of each tensor's scale
 MARGIN = 1e-4               # tokens compared where the top-2 margin exceeds
-MESHES = {4: [(2, 2), (4, 1), (1, 4)], 2: [(2, 1), (1, 2)], 1: [(1, 1)]}
+MESHES = {4: [(2, 2), (4, 1), (1, 4), (2, 2, 1), (2, 1, 2)],
+          2: [(2, 1), (1, 2)], 1: [(1, 1), (1, 1, 1)]}
 TIMEOUT_S = 1000
 
 
@@ -93,9 +96,10 @@ def one_card(torch, h, shape, dev, mesh_shape, batch):
     half batch routes under another capacity)."""
     from repro_torch.configs.shapes import Shape
     from repro_torch.core import prng
-    from repro_torch.launch.mesh import make_host_mesh, use_mesh
+    from repro_torch.launch.mesh import use_mesh
+    from torch_lm_ranks_calls import logical_mesh
 
-    lmesh = make_host_mesh(*mesh_shape, devices=[dev])
+    lmesh = logical_mesh(mesh_shape, dev)
     params = h.model.init(prng.key(1), device=dev)
     logits, cache = h.make_prefill_step(
         Shape("serve", shape.seq_len, CUT_B, "prefill"), lmesh)(params,
@@ -362,6 +366,7 @@ def rank_main(args) -> None:
 
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.distributed import process_group as pg
+    from torch_lm_ranks_calls import axis_names
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -369,10 +374,10 @@ def rank_main(args) -> None:
     dev = torch.device("cuda", args.rank)
     meshes = MESHES[world]
     groups = {meshes[0]: pg.init_ranks(
-        ("data", "model"), meshes[0], rank=args.rank,
+        axis_names(meshes[0]), meshes[0], rank=args.rank,
         init_method=args.init_method, device=dev, timeout_s=TIMEOUT_S)}
     for m in meshes[1:]:
-        groups[m] = pg.mesh_groups(("data", "model"), m, dev,
+        groups[m] = pg.mesh_groups(axis_names(m), m, dev,
                                    timeout_s=TIMEOUT_S)
     cases = []
     t0 = time.perf_counter()

@@ -407,9 +407,9 @@ class RankPlan:
     ``shardings``, the :class:`Sharding` of every param leaf (the
     params' tree). The serving steps add ``cache``, the stacked cache's
     shardings (:func:`cache_partition`), and ``rows_split``: whether the
-    batch's rows split over ``data`` (as :func:`batch_partition` splits
-    them where the data axis divides the batch) or every data rank holds
-    them all."""
+    batch's rows split over the batch axes (``pod`` x ``data``, as
+    :func:`batch_partition` splits them where their size divides the
+    batch) or every rank holds them all."""
 
     groups: Any
     shardings: Any
@@ -426,8 +426,36 @@ class RankPlan:
         return kv_layout(layer_shardings(self.cache)["k"])
 
     @property
+    def batch_axes(self) -> tuple:
+        """The mesh axes the batch's rows split over, major first: ``("pod",
+        "data")`` on a mesh with a pod axis, else ``("data",)`` (the
+        partitioner's ``batch_axes``)."""
+        return tuple(a for a in ("pod", "data")
+                     if a in self.groups.axis_names) or ("data",)
+
+    @property
     def dp(self) -> int:
-        return self.groups.size("data")
+        """The batch shards: the size of :attr:`batch_axes`."""
+        return int(np.prod([self.groups.size(a) for a in self.batch_axes]))
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's batch shard: its row-major index over
+        :attr:`batch_axes` (pod-major), the block of rows it holds."""
+        idx = 0
+        for a in self.batch_axes:
+            idx = idx * self.groups.size(a) + self.groups.index(a)
+        return idx
+
+    def gather_rows(self, x, dim: int = 0):
+        """Every batch shard's rows of ``x`` along ``dim``, in batch order:
+        gathered over ``data``, then over ``pod`` (pod-major), so the
+        backward reduce-scatters over ``pod``, then ``data``."""
+        from repro_torch.distributed import process_group as pg
+
+        for axis in reversed(self.batch_axes):
+            x = pg.gather(x, dim, self.groups, axis)
+        return x
 
     def fsdp(self, tree, shardings):
         """``tree``'s leaves with their ``data``-sharded dims gathered

@@ -31,7 +31,8 @@ Every collective adds the bytes of its buffer to :data:`BYTES` and one
 to :data:`CALLS` under its kind (``all_gather``: the gathered output;
 ``reduce_scatter``: the input; ``all_reduce``: the tensor;
 ``all_to_all``: the input; ``send``: the sent tensor, counted by the
-sender), which :func:`reset_bytes` clears.
+sender), and the same bytes to :data:`AXIS_BYTES` under ``kind/axis``
+(``world`` for the whole group), which :func:`reset_bytes` clears.
 """
 
 from __future__ import annotations
@@ -48,8 +49,8 @@ import torch.distributed as dist
 from repro_torch.distributed import partition as part
 from repro_torch.tree import leaves, unflatten
 
-__all__ = ["BYTES", "CALLS", "RankGroups", "all_reduce_", "all_to_all",
-           "copy_in", "file_init_method", "free_port", "gather",
+__all__ = ["AXIS_BYTES", "BYTES", "CALLS", "RankGroups", "all_reduce_",
+           "all_to_all", "copy_in", "file_init_method", "free_port", "gather",
            "gather_tree", "init_fake", "init_ranks", "mesh_groups",
            "reduce_out",
            "reset_bytes", "scatter_tree", "shutdown", "world_size"]
@@ -57,16 +58,21 @@ __all__ = ["BYTES", "CALLS", "RankGroups", "all_reduce_", "all_to_all",
 # collective kind -> bytes moved / calls since the last reset_bytes()
 BYTES: collections.Counter = collections.Counter()
 CALLS: collections.Counter = collections.Counter()
+# "kind/axis" -> bytes: BYTES split by the mesh axis a collective ran over
+AXIS_BYTES: collections.Counter = collections.Counter()
 
 
 def reset_bytes() -> None:
     BYTES.clear()
     CALLS.clear()
+    AXIS_BYTES.clear()
 
 
-def _count(kind: str, t) -> None:
-    BYTES[kind] += t.numel() * t.element_size()
+def _count(kind: str, t, axis: str | None = None) -> None:
+    n = t.numel() * t.element_size()
+    BYTES[kind] += n
     CALLS[kind] += 1
+    AXIS_BYTES[f"{kind}/{axis or 'world'}"] += n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,7 +179,7 @@ def _all_gather(x, dim: int, groups: RankGroups, axis: str):
     x = x.contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
     _ALL_GATHER(out, x, group=groups.groups[axis])
-    _count("all_gather", out)
+    _count("all_gather", out, axis)
     # (n, ..., s, ...) -> (..., n s, ...): the shards in axis order
     out = out.unflatten(0, (n, x.shape[0]))
     return torch.movedim(out, 0, dim).flatten(dim, dim + 1)
@@ -185,7 +191,7 @@ def _reduce_scatter(g, dim: int, groups: RankGroups, axis: str):
     parts = parts.contiguous()
     out = parts.new_empty(parts.shape[1:])
     _REDUCE_SCATTER(out, parts.flatten(0, 1), group=groups.groups[axis])
-    _count("reduce_scatter", parts)
+    _count("reduce_scatter", parts, axis)
     return out
 
 
@@ -200,7 +206,7 @@ def all_reduce_(t, groups: RankGroups, axis: str | None, op: str = "sum"):
     if n > 1:
         dist.all_reduce(t, op=_OPS[op],
                         group=None if axis is None else groups.groups[axis])
-        _count("all_reduce", t)
+        _count("all_reduce", t, axis)
     return t
 
 
@@ -208,7 +214,7 @@ def _all_to_all(x, groups: RankGroups, axis: str):
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=groups.groups[axis])
-    _count("all_to_all", x)
+    _count("all_to_all", x, axis)
     return out
 
 

@@ -35,12 +35,14 @@ device, as GSPMD's one program does. For each cell
 It records the twin's fields (the memory peak, per-device flops and
 bytes, collective bytes by kind, the roofline terms on the H100's
 constants, :mod:`repro_torch.roofline`), with ``analyze_s`` in place of
-``lower_s`` / ``compile_s``; prefill and decode cells record them
+``lower_s`` / ``compile_s`` (``groups_s`` of it builds the axis groups:
+every rank's subgroup of every axis line, 320 of them on ``(2, 16,
+16)``); prefill and decode cells record them
 with ``n_micro`` 1. A cell's status is ``ok`` (it ran),
 ``skip`` (the twin's documented skip: long_500k on a full-attention
 arch), ``not_ported`` (the rank step raises ROADMAP item 12e-ii's
-refusal: the families other than dense GQA and MoE, a ``pod`` axis,
-heads the ``model`` axis does not divide) or ``fail``
+refusal: the families other than dense GQA and MoE, heads the ``model``
+axis does not divide) or ``fail``
 (anything else: a bug, and the run exits 1). Records append to the
 ``--out`` file, which ``repro_torch.benchmarks.roofline`` reads.
 """
@@ -127,17 +129,18 @@ def run_cell(arch_id: str, shape, *, multi_pod: bool = False,
              variant: str | None = None, cfg=None, device="cuda",
              verbose: bool = True) -> dict:
     """The record of one cell. ``shape`` is a name of ``SHAPES`` or a
-    :class:`Shape`; ``mesh`` a ``(data, model)`` size in place of the
-    production mesh; ``cfg`` a config in place of the arch's CONFIG
-    (``variant`` overrides apply on top)."""
+    :class:`Shape`; ``mesh`` a ``(data, model)`` or ``(pod, data, model)``
+    size in place of the production mesh; ``cfg`` a config in place of
+    the arch's CONFIG (``variant`` overrides apply on top)."""
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     if mesh is None:
         lm = make_production_mesh(multi_pod=multi_pod)
         names, sizes = lm.axis_names, lm.sizes
         label = "multi_pod_2x16x16" if multi_pod else "single_pod_16x16"
     else:
-        names, sizes = ("data", "model"), tuple(int(s) for s in mesh)
-        label = f"ranks_{sizes[0]}x{sizes[1]}"
+        sizes = tuple(int(s) for s in mesh)
+        names = ("pod", "data", "model")[-len(sizes):]
+        label = "ranks_" + "x".join(map(str, sizes))
     n_chips = int(np.prod(sizes))
     cfg, harness_kw = _parse_variant(arch_id, variant, cfg)
     harness = LMHarness(arch_id, cfg=cfg, expert_parallel=expert_parallel,
@@ -162,7 +165,9 @@ def run_cell(arch_id: str, shape, *, multi_pod: bool = False,
     try:
         pg.init_fake(n_chips)
         try:
+            t_groups = time.time()
             rmesh = make_rank_mesh(pg.mesh_groups(names, sizes, device))
+            rec["groups_s"] = round(time.time() - t_groups, 3)
             step = harness.step_fn(shape, rmesh, shape.kind)
             in_sh, _, like = harness.shardings(shape, rmesh, shape.kind)
             with FakeTensorMode():

@@ -31,8 +31,10 @@ A mesh runs in one of two ways:
     ``model``, the expert exchange between ranks; ROADMAP item 12e), and
     so do prefill and decode, each rank holding its shard of the cache
     (the slots over ``model`` where they divide: decode context
-    parallelism), for the dense GQA / MQA and MoE families; the other
-    families and a ``pod`` axis are item 12e-ii and raise.
+    parallelism), for the dense GQA / MQA and MoE families, on a mesh
+    with or without a ``pod`` axis (the batch over ``(pod, data)``, the
+    params replicated over ``pod``); the other families are item 12e-ii
+    and raise.
 
 A mesh over several distinct devices outside a process group raises: the
 twin's program has GSPMD's global semantics (MoE capacity over the whole
@@ -59,6 +61,7 @@ __all__ = ["LMMesh", "current_mesh", "make_host_mesh",
 # how to run a mesh over several devices, for the errors that refuse one
 LAUNCH_HINT = ("launch one process a device on a process group: "
                "`python -m repro_torch.launch.train --ranks --mesh DxM` "
+               "(or PxDxM) "
                "(ROADMAP item 12e)")
 
 
@@ -183,9 +186,9 @@ def single_device(mesh: LMMesh) -> torch.device:
 def refuse_ranks(mesh, what: str) -> None:
     """Raise for ``what`` (a step of a family, or a lever) on a rank mesh:
     ROADMAP item 12e-ii. The train, prefill and decode steps of the dense
-    GQA / MQA and MoE families run across ranks; the other families'
-    steps, a ``pod`` axis, ``moe_ep`` at prefill and decode and the
-    ``expert_parallel`` lever are refused by
+    GQA / MQA and MoE families run across ranks, with or without a
+    ``pod`` axis; the other families' steps, ``moe_ep`` at prefill and
+    decode and the ``expert_parallel`` lever are refused by
     :meth:`repro_torch.launch.steps.LMHarness._refuse_across_ranks`."""
     if mesh is not None and getattr(mesh, "is_ranks", False):
         raise NotImplementedError(

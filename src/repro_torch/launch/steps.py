@@ -30,16 +30,18 @@ local MoE capacity follow it. A step runs a logical mesh on one device
 (:func:`repro_torch.launch.mesh.single_device`), or a rank mesh
 (:func:`repro_torch.launch.mesh.make_rank_mesh`, one process a device):
 
-  * each data rank takes its rows of the strided split (a contiguous
-    block of ``B / n_data`` rows, ``n_micro`` microbatches of it);
+  * each batch shard takes its rows of the strided split (a contiguous
+    block of ``B / (n_pod n_data)`` rows at its row-major ``(pod,
+    data)`` index, ``n_micro`` microbatches of it);
   * the params, Adam's moments and the float32 gradient accumulator are
-    this rank's shards, never whole: a layer's ``data`` shards are
-    gathered inside its remat region and their gradient reduce-scattered
-    back by the gather's backward, each microbatch; the gradient of a
-    leaf not sharded over ``data`` is all-reduced over it once a step;
-  * the loss is the sum over data ranks of their parts (sums over the
-    microbatch's token count, not a mean of means), and the clip's norm
-    counts each leaf's shard once among its replicas;
+    this rank's shards, never whole (replicated over ``pod``): a layer's
+    ``data`` shards are gathered inside its remat region and their
+    gradient reduce-scattered back by the gather's backward, each
+    microbatch; the gradient of a leaf not sharded over ``data`` is
+    all-reduced over it once a step, and every leaf's over ``pod``;
+  * the loss is the sum over the batch shards of their parts (sums over
+    the microbatch's token count, not a mean of means), and the clip's
+    norm counts each leaf's shard once among its replicas (on pod 0);
   * it returns this rank's ``params`` and ``opt_state`` and the global
     ``loss`` and ``grad_norm``.
 
@@ -47,9 +49,9 @@ Prefill and decode run on a rank mesh too, for the same families (dense
 GQA / MQA and MoE, without ``moe_ep`` or the ``expert_parallel`` lever):
 
   * they take the global batch (or the decode tokens) and cut this
-    rank's rows over ``data`` where the data axis divides the batch (as
-    the twin's input sharding splits it; else every data rank holds
-    every row);
+    rank's rows over ``(pod, data)`` where those axes divide the batch
+    (as the twin's input sharding splits it; else every rank holds every
+    row);
   * the params are this rank's shards (gathered over ``data`` a layer at
     a time, Megatron TP over ``model``), and so is the cache: each rank
     allocates only its shard of every leaf of ``cache_partition``'s
@@ -57,12 +59,13 @@ GQA / MQA and MoE, without ``moe_ep`` or the ``expert_parallel`` lever):
     slots over ``model`` where they divide (decode context parallelism),
     else the K/V heads, else replicated over ``model``;
   * like the twin's replicated outputs, every rank returns the whole
-    batch's last logits (prefill) or next tokens (decode), with its own
-    cache shards.
+    batch's last logits (prefill) or next tokens (decode), gathered over
+    ``data`` and ``pod``, with its own cache shards.
 
-The train step of the families other than the dense GQA and MoE ones,
-their prefill and decode, and a ``pod`` axis are ROADMAP item 12e-ii and
-raise.
+A mesh may have a ``pod`` axis (``("pod", "data", "model")``): it carries
+only the batch, as the twin's rules put only the batch on it. The train
+step of the families other than the dense GQA and MoE ones, and their
+prefill and decode, are ROADMAP item 12e-ii and raise.
 """
 
 from __future__ import annotations
@@ -232,8 +235,6 @@ class LMHarness:
             what = "rwkv6"
         elif self.is_whisper:
             what = "whisper"
-        elif "pod" in mesh.axis_names:
-            what = "a mesh with a pod axis"
         elif cfg.moe is not None and self.expert_parallel:
             what = "the expert_parallel lever"
         elif cfg.moe is not None and cfg.moe_ep and kind != "train":
@@ -248,18 +249,19 @@ class LMHarness:
                                         self.rules(mesh))
         plan = part.RankPlan(groups, p_shard)
         n_micro = self.n_microbatches(shape, mesh)
-        n_dp, row = groups.size("data"), groups.index("data")
+        n_dp, row = plan.dp, plan.batch_index
         B = shape.global_batch
         if B % (n_dp * n_micro):
             raise ValueError(f"batch {B} does not split into {n_micro} "
-                             f"microbatches on each of {n_dp} data ranks")
+                             f"microbatches on each of {n_dp} batch shards")
         rows = B // n_dp
         device = groups.device
         model, opt = self.model, self.opt
         used = [{a for e in sh.spec for a in part.entry_axes(e)}
                 for sh in leaves(p_shard)]
         # a leaf not sharded over data has a partial gradient on each
-        # data rank; a leaf's norm counts on one rank of its replicas
+        # data rank, and every leaf one on each pod (params replicate over
+        # pod); a leaf's norm counts on one rank of its replicas
         partial = ["data" not in u for u in used]
         owned = [all(groups.index(a) == 0 for a in groups.axis_names
                      if a not in u) for u in used]
@@ -269,16 +271,17 @@ class LMHarness:
 
         def train_step(params, opt_state, batch):
             with use_mesh(mesh), part.rank_plan(plan), (
-                    part.activation_sharding(("data",), B, mesh)):
+                    part.activation_sharding(plan.batch_axes, B, mesh)):
                 xs = {k: _strided_split(torch.as_tensor(v)[
                     row * rows:(row + 1) * rows].to(device), n_micro, 1)
                       for k, v in batch.items()}
                 gsum, lsum = _accumulate(model, params, xs, n_micro, device)
                 with torch.no_grad():
-                    for acc, part_ in zip(gsum, partial):
+                    # the loss sums over data and pod as a replicated leaf
+                    for acc, part_ in zip(gsum + [lsum], partial + [True]):
                         if part_:
                             pg.all_reduce_(acc, groups, "data")
-                    pg.all_reduce_(lsum, groups, "data")
+                        pg.all_reduce_(acc, groups, "pod")
                     n = torch.full((), float(n_micro), dtype=torch.float32,
                                    device=device)
                     grads = unflatten(params, [g.div_(n) for g in gsum])
@@ -353,13 +356,14 @@ class LMHarness:
         c_shapes = self.cache_shapes(shape)
         c_shard = part.cache_partition(c_shapes, mesh, rules)
         B = shape.global_batch
-        # the rows split over data where the twin's batch sharding splits
-        # them (``batch_partition``), else every data rank holds them all
+        # the rows split over the batch axes (pod x data) where the twin's
+        # batch sharding splits them (``batch_partition``), else every
+        # rank holds them all
         split = bool(part.batch_partition(
             self.token_shapes(shape), mesh, rules)["tokens"].spec)
         plan = part.RankPlan(groups, p_shard, cache=c_shard,
                              rows_split=split)
-        n_dp, row = groups.size("data"), groups.index("data")
+        n_dp, row = plan.dp, plan.batch_index
         rows = slice(row * (B // n_dp), (row + 1) * (B // n_dp)) if split \
             else slice(None)
         device = groups.device
@@ -370,7 +374,7 @@ class LMHarness:
                     for k, v in tree.items()}
 
         def whole(x):   # this rank's rows -> the whole batch's
-            return pg.gather(x, 0, groups, "data") if split else x
+            return plan.gather_rows(x) if split else x
 
         if kind == "prefill":
             @torch.no_grad()

@@ -23,7 +23,10 @@ the ``(data, model)`` mesh on a process group (NCCL on ``cuda``, one card
 a rank; gloo on ``--device cpu``), each running
 :meth:`repro_torch.launch.steps.LMHarness.make_train_step` on its shards
 (FSDP over ``data``, tensor parallelism over ``model``, one sequence a
-data rank a microbatch) under the same schedule. A mesh
+batch shard a microbatch) under the same schedule; ``--mesh PxDxM`` adds
+a leading ``pod`` axis of ``P`` (the batch over ``(pod, data)``, the
+params and the state replicated over ``pod``, the gradients summed over
+it). A mesh
 larger than the visible cards raises; a rank that fails ends every rank
 and the launcher with a nonzero exit. Checkpoints are gathered to rank 0
 in the one-process layout (one file serves both forms) and scattered on
@@ -31,6 +34,8 @@ resume.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --ranks --mesh 2x2 --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --ranks --mesh 2x2x1 --steps 8
     python -m repro_torch.launch.train --ranks --mesh 4x1 --full
 """
 
@@ -83,7 +88,8 @@ def main(argv=None) -> dict:
                     help="one process a device of --mesh, on a process "
                          "group (nccl on cuda, gloo on cpu)")
     ap.add_argument("--mesh", default=None,
-                    help="DxM: data x model ranks (with --ranks)")
+                    help="DxM: data x model ranks, or PxDxM with a pod "
+                         "axis (with --ranks)")
     ap.add_argument("--fail-rank", type=int, default=None,
                     help="with --fail-at-step: only this rank fails")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
@@ -148,16 +154,21 @@ def main(argv=None) -> dict:
     return state
 
 
-def _mesh_of(text: str) -> tuple[int, int]:
-    d, m = (int(v) for v in text.lower().split("x"))
-    return d, m
+def _mesh_of(text: str) -> tuple[tuple, tuple]:
+    """``(axis names, sizes)`` of ``DxM`` or ``PxDxM``."""
+    sizes = tuple(int(v) for v in text.lower().split("x"))
+    names = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(
+        len(sizes))
+    if names is None or min(sizes) < 1:
+        raise ValueError(f"--mesh {text}: DxM or PxDxM, each at least 1")
+    return names, sizes
 
 
 def _launch_ranks(args, argv) -> dict:
     """Start one process a rank, watch them, and end them all when one
     fails: the launcher's exit code is the first failure's."""
-    d, m = _mesh_of(args.mesh)
-    world = d * m
+    _, sizes = _mesh_of(args.mesh)
+    world = int(np.prod(sizes))
     dev = resolve_device(args.device)
     if dev.type == "cuda" and world > torch.cuda.device_count():
         raise ValueError(f"a {args.mesh} mesh needs {world} cards; "
@@ -201,13 +212,13 @@ def _launch_ranks(args, argv) -> dict:
 def _rank_main(args) -> dict:
     """One rank: its shards of the params and the state, the harness's
     train step on the rank mesh, the loop with gathered checkpoints."""
-    d, m = _mesh_of(args.mesh)
+    names, sizes = _mesh_of(args.mesh)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         dev = torch.device("cuda", args.rank)
     else:
         torch.set_num_threads(1)   # the host's ranks share its cores
-    groups = pg.init_ranks(("data", "model"), (d, m), rank=args.rank,
+    groups = pg.init_ranks(names, sizes, rank=args.rank,
                            init_method=args.init_method, device=dev,
                            timeout_s=RANK_TIMEOUT_S)
     try:

@@ -22,16 +22,16 @@ and the results go home the same way.
 :func:`moe_forward_rank` is the rank step's MoE across ranks (one
 process a device): :func:`moe_forward` with the rank's own hooks for the
 experts and the shared expert. Without ``moe_ep`` it keeps GSPMD's
-global semantics: the microbatch is gathered over ``data`` before
-routing, so capacity counts every rank's tokens, each data rank runs the
-whole microbatch's dispatch and experts and keeps its own rows (the
-redundant work is the data axis's size over; the shared expert runs on
-the rank's own tokens only). With ``moe_ep`` each data row routes its
-own tokens, an all-to-all over ``data`` carries the expert buffers out
-and the results back, and the experts' weights reach their row by one
-all-to-all of their ``embed`` shards. The experts' ``d_ff`` runs
-tensor-parallel over ``model`` (one all-reduce). A decode step routes
-droplessly, so each rank routes its own rows.
+global semantics: the microbatch is gathered over ``data`` and ``pod``
+before routing, so capacity counts every rank's tokens, each batch
+shard runs the whole microbatch's dispatch and experts and keeps its
+own rows (the redundant work is the batch shards' count over; the shared
+expert runs on the rank's own tokens only). With ``moe_ep`` each data
+row routes its own tokens, an all-to-all over ``data`` (within a pod)
+carries the expert buffers out and the results back, and the experts'
+weights reach their row by one all-to-all of their ``embed`` shards. The
+experts' ``d_ff`` runs tensor-parallel over ``model`` (one all-reduce).
+A decode step routes droplessly, so each rank routes its own rows.
 """
 
 from __future__ import annotations
@@ -225,7 +225,8 @@ def moe_forward_ep(p: dict, x, cfg: TransformerConfig, *,
     row's buffer for its experts ``j epr .. (j + 1) epr - 1`` (``epr = E /
     n_data``), runs them, and sends each row its results back. The aux
     loss is the mean of the rows' (the twin's ``pmean`` over ``data``),
-    pod 0's where there are pods."""
+    pod 0's where there are pods; its gradient there is the mean's over
+    the rows of every pod, as the twin's."""
     if mesh is None:
         from repro_torch.launch.mesh import current_mesh
         mesh = current_mesh()
@@ -287,6 +288,12 @@ def moe_forward_ep(p: dict, x, cfg: TransformerConfig, *,
         outs.append(out.reshape(Bl, S, d))
         auxs.append(aux)
     aux = torch.mean(torch.stack(auxs[:n_ed]))
+    if n_pod > 1:
+        # the twin's aux leaves its shard_map replicated but unchecked:
+        # its value is pod 0's mean over data, its gradient the mean's
+        # over every row of every pod
+        every = torch.mean(torch.stack(auxs))
+        aux = aux.detach() + (every - every.detach())
     return torch.cat(outs), aux
 
 
@@ -318,12 +325,14 @@ def moe_forward_rank(p: dict, shardings: dict, x, cfg: TransformerConfig,
     ``p`` holds this rank's shards of the layer's MoE params and
     ``shardings`` their :class:`~repro_torch.distributed.partition.
     Sharding` (``plan``: the rank step's). ``aux`` is the microbatch's
-    (without ``moe_ep``) or this data row's (with it).
+    (without ``moe_ep``) or this data row's (with it; on a mesh with a
+    pod axis its value is scaled so that pod 0's rows give the twin's
+    loss).
 
     ``dropless`` (a decode step) sizes every expert's buffer to hold all
     of the tokens, so no token's routing depends on another's: the rank
-    routes its own rows alone, as it does where every data rank holds
-    the whole batch (``plan.rows_split`` false)."""
+    routes its own rows alone, as it does where every rank holds the
+    whole batch (``plan.rows_split`` false)."""
     m: MoEConfig = cfg.moe
     groups = plan.groups
     spec = shardings["w_gate"].spec
@@ -341,17 +350,17 @@ def moe_forward_rank(p: dict, shardings: dict, x, cfg: TransformerConfig,
             experts=lambda p, eb, cfg: _experts_tp(p, eb, cfg, groups),
             shared=lambda p, xf: _shared_tp(p, xf, cfg, groups))
     Bl, S = x.shape[0], x.shape[1]
-    lo, Tl = groups.index("data") * Bl * S, Bl * S
-    T = n_ed * Tl
+    j = plan.batch_index
+    lo, Tl = j * Bl * S, Bl * S
+    T = plan.dp * Tl
 
     def shared(p, xf):   # this rank's tokens only, zeros elsewhere
         own = _shared_tp(p, xf[lo:lo + Tl], cfg, groups)
         return torch.nn.functional.pad(own, (0, 0, lo, T - lo - Tl))
 
     out, aux = moe_forward(
-        p, pg.gather(x, 0, groups, "data"), cfg, shared=shared,
+        p, plan.gather_rows(x), cfg, shared=shared,
         experts=lambda p, eb, cfg: _experts_tp(p, eb, cfg, groups))
-    j = groups.index("data")
     return out[j * Bl:(j + 1) * Bl], aux
 
 
@@ -398,4 +407,12 @@ def _moe_ep_rank(p, shardings, x, cfg, plan):
         sp = plan.fsdp(sp, {key: shardings[key] for key in sp})
         return _shared_tp(sp, xf, cfg, groups)
 
-    return moe_forward(p, x, cfg, experts=experts, shared=shared)
+    out, aux = moe_forward(p, x, cfg, experts=experts, shared=shared)
+    n_pod = groups.size("pod")
+    if n_pod > 1:
+        # the loss takes aux / (n_pod n_data) from every rank: pod 0's
+        # rows give the value (the twin's), every pod's the gradient
+        # (see moe_forward_ep)
+        scale = n_pod if groups.index("pod") == 0 else 0
+        aux = aux.detach() * scale + (aux - aux.detach())
+    return out, aux

@@ -677,9 +677,10 @@ class DecoderLM:
     def _head_rank(self, hp, x, targets, plan):
         """Final norm, logits and the vocab-parallel cross entropy of this
         rank's rows: ``(sum of CE + z_weight sum of logz^2) / N``, ``N``
-        the microbatch's tokens over all data ranks, so the data ranks'
-        parts sum to the twin's token means. Over ``model`` the max and
-        the sum of exponentials are all-reduced, never the logits."""
+        the microbatch's tokens over all batch shards (``pod`` x
+        ``data``), so their parts sum to the twin's token means. Over
+        ``model`` the max and the sum of exponentials are all-reduced,
+        never the logits."""
         cfg = self.cfg
         groups = plan.groups
         x = rms_norm(x, hp["final_norm"]["scale"], cfg.norm_eps)
@@ -711,10 +712,10 @@ class DecoderLM:
     def _loss_rank(self, params, batch_in, rematerialize, plan):
         """This rank's part of the microbatch's loss: its rows' CE and
         z-loss over the microbatch's token count, plus the aux loss over
-        the data ranks' count (each data rank holds the microbatch's aux,
-        or with ``moe_ep`` its row's, whose mean the twin takes), so the
-        parts sum over ``data`` to the twin's loss; every ``model`` rank
-        holds the same part."""
+        the batch shards' count (each batch shard holds the microbatch's
+        aux, or with ``moe_ep`` its data row's, whose mean the twin
+        takes), so the parts sum over ``pod`` x ``data`` to the twin's
+        loss; every ``model`` rank holds the same part."""
         x = self._embed_rank(params, batch_in, plan)
         B, S = x.shape[0], x.shape[1]
         positions = self._positions(batch_in, B, S, x.device)

@@ -6,6 +6,11 @@ named tuple is a node; ``None`` is a node with no leaves; anything else is
 a leaf. A leaf's path is the tuple of its dict keys, sequence indices and
 named-tuple field names from the root, as ``tree_flatten_with_path``
 gives it.
+
+The walks are module-level functions that take what they read as
+arguments: a closure that names itself is a reference cycle, which would
+keep whatever the walk saw (the leaves, ``fn``, the iterator over new
+leaves) alive until the cyclic collector runs.
 """
 
 from __future__ import annotations
@@ -58,17 +63,17 @@ def flatten_with_paths(tree, is_leaf=None) -> list[tuple[tuple, Any]]:
     """``[(path, leaf), ...]`` in ``jax.tree_util.tree_flatten_with_path``
     order; ``is_leaf(node)`` true stops the walk at ``node``."""
     out = []
-
-    def walk(node, path):
-        kids = _node_children(node, is_leaf)
-        if kids is None:
-            out.append((path, node))
-            return
-        for entry, child in kids:
-            walk(child, path + (entry,))
-
-    walk(tree, ())
+    _walk(tree, (), is_leaf, out)
     return out
+
+
+def _walk(node, path, is_leaf, out) -> None:
+    kids = _node_children(node, is_leaf)
+    if kids is None:
+        out.append((path, node))
+        return
+    for entry, child in kids:
+        _walk(child, path + (entry,), is_leaf, out)
 
 
 def leaves(tree, is_leaf=None) -> list:
@@ -79,17 +84,17 @@ def leaves(tree, is_leaf=None) -> list:
 def unflatten(like, new_leaves) -> Any:
     """A tree of ``like``'s structure holding ``new_leaves`` in order."""
     it = iter(new_leaves)
-
-    def build(node):
-        kids = _children(node)
-        if kids is None:
-            return next(it)
-        return _rebuild(node, [build(c) for _, c in kids])
-
-    out = build(like)
+    out = _build(like, it)
     if next(it, _END) is not _END:
         raise ValueError("more leaves than the structure holds")
     return out
+
+
+def _build(node, it):
+    kids = _children(node)
+    if kids is None:
+        return next(it)
+    return _rebuild(node, [_build(c, it) for _, c in kids])
 
 
 _END = object()
@@ -99,42 +104,42 @@ def tree_map(fn: Callable, tree, *rest, is_leaf=None) -> Any:
     """``jax.tree.map``: ``fn`` over the leaves of ``tree`` and, from each
     of ``rest``, the subtree at the same place (``tree``'s structure is a
     prefix of theirs)."""
+    return _map(fn, tree, list(rest), is_leaf)
 
-    def go(node, others):
-        kids = _node_children(node, is_leaf)
-        if kids is None:
-            return fn(node, *others)
-        for o in others:
-            if type(o) is not type(node) or (
-                    isinstance(node, dict) and sorted(o) != sorted(node)) or (
-                    isinstance(node, (list, tuple)) and len(o) != len(node)):
-                raise ValueError(f"tree structures differ: {type(node)} "
-                                 f"against {type(o)}")
-        return _rebuild(node, [go(c, [_child(o, e) for o in others])
-                               for e, c in kids])
 
-    return go(tree, list(rest))
+def _map(fn, node, others, is_leaf):
+    kids = _node_children(node, is_leaf)
+    if kids is None:
+        return fn(node, *others)
+    for o in others:
+        if type(o) is not type(node) or (
+                isinstance(node, dict) and sorted(o) != sorted(node)) or (
+                isinstance(node, (list, tuple)) and len(o) != len(node)):
+            raise ValueError(f"tree structures differ: {type(node)} "
+                             f"against {type(o)}")
+    return _rebuild(node, [_map(fn, c, [_child(o, e) for o in others],
+                                is_leaf) for e, c in kids])
 
 
 def structure_str(tree) -> str:
     """The tree's structure as ``str(jax.tree.structure(tree))`` writes
     it, e.g. ``PyTreeDef({'a': *, 'b': [*, None]})``."""
+    return f"PyTreeDef({_fmt(tree)})"
 
-    def fmt(node) -> str:
-        kids = _children(node)
-        if kids is None:
-            return "*"
-        if node is None:
-            return "None"
-        parts = [fmt(c) for _, c in kids]
-        if isinstance(node, dict):
-            return "{" + ", ".join(f"{k!r}: {p}"
-                                   for (k, _), p in zip(kids, parts)) + "}"
-        if isinstance(node, list):
-            return "[" + ", ".join(parts) + "]"
-        if _is_namedtuple(node):
-            return (f"{type(node).__name__}(" + ", ".join(
-                f"{k}={p}" for (k, _), p in zip(kids, parts)) + ")")
-        return "(" + ", ".join(parts) + ("," if len(parts) == 1 else "") + ")"
 
-    return f"PyTreeDef({fmt(tree)})"
+def _fmt(node) -> str:
+    kids = _children(node)
+    if kids is None:
+        return "*"
+    if node is None:
+        return "None"
+    parts = [_fmt(c) for _, c in kids]
+    if isinstance(node, dict):
+        return "{" + ", ".join(f"{k!r}: {p}"
+                               for (k, _), p in zip(kids, parts)) + "}"
+    if isinstance(node, list):
+        return "[" + ", ".join(parts) + "]"
+    if _is_namedtuple(node):
+        return (f"{type(node).__name__}(" + ", ".join(
+            f"{k}={p}" for (k, _), p in zip(kids, parts)) + ")")
+    return "(" + ", ".join(parts) + ("," if len(parts) == 1 else "") + ")"

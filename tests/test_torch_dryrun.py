@@ -11,22 +11,26 @@ a torch built without CUDA):
 * granite-3-2b ``decode_32k`` is ``ok`` (one decode step of a rank on
   its cache shard: slots over ``model``, rows over ``data``),
   granite-20b ``long_500k`` a ``skip`` with the twin's reason, and
-  granite-3-2b ``train_4k`` on the ``(16, 16)`` mesh at ``micro_rows``
-  16 (one microbatch) ``ok``: 256 chips, positive terms, a dominant one;
+  granite-3-2b ``train_4k`` ``ok`` on the ``(16, 16)`` mesh at
+  ``micro_rows`` 16 and on the ``(2, 16, 16)`` mesh at ``micro_rows`` 8
+  (one microbatch each): 256 or 512 chips, positive terms, a dominant
+  one, and on the pod mesh half the rows and the gradients' all-reduce
+  over ``pod``;
 * chip_smoke's phase 15 cell, granite-3-2b whole on ``(4, 1)``, B 8 x S
   512, ``micro_rows`` 2: the calls and bytes four H100 ranks measured
   (563 / 282 / 5 calls; 10.335 GB / 5.268 GB / 0.66 MB, the exact
   integers pinned);
-* every cell of ``--arch all --shape all --mesh both`` but the three
+* every cell of ``--arch all --shape all --mesh both`` but the six
   ``train_4k`` cells that run never ``fail`` (one case a cell): the
   prefill, decode and long cells of granite-3-2b, granite-20b and
-  mixtral-8x7b on ``(16, 16)`` are ``ok``, the rest ``skip`` or
-  ``not_ported`` (ROADMAP item 12e-ii): 10 ok, 12 skip, 58 not_ported
-  and 0 fail in all. The serving cells that run go in a subprocess an
-  arch, beside the others.
+  mixtral-8x7b on ``(16, 16)`` and ``(2, 16, 16)`` are ``ok``, the rest
+  ``skip`` or ``not_ported`` (ROADMAP item 12e-ii): 20 ok, 12 skip, 48
+  not_ported and 0 fail in all. The serving cells that run go in a
+  subprocess an arch and a mesh, beside the others.
 
 The default ``micro_rows`` (16 microbatches, ~8 min on the CPU) is
-marked ``slow``, as the twin marks its own cells.
+marked ``slow``, as the twin marks its own cells; granite-20b's and
+mixtral-8x7b's ``train_4k`` cells run in the CLI's run alone.
 """
 
 import json
@@ -44,14 +48,17 @@ from repro_torch.configs.shapes import SHAPES  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 900
 RUNS_OK = {"granite-3-2b", "granite-20b", "mixtral-8x7b"}
-# every cell of --arch all --shape all --mesh both but the three that run
+# every cell of --arch all --shape all --mesh both but the six train_4k
+# cells that run (RUNS_OK's, on both meshes)
 OTHERS = [(arch, shape, multi) for arch in configs.list_archs()
           for shape in SHAPES for multi in (False, True)
-          if not (shape == "train_4k" and not multi and arch in RUNS_OK)]
+          if not (shape == "train_4k" and arch in RUNS_OK)]
 # the prefill, decode and long cells that run across ranks, on (16, 16)
-SERVE_OK = {(arch, shape, False) for arch in RUNS_OK
-            for shape in ("prefill_32k", "decode_32k")} | {
-    ("mixtral-8x7b", "long_500k", False)}
+# and (2, 16, 16)
+SERVE_OK = {(arch, shape, multi) for arch in RUNS_OK
+            for shape in ("prefill_32k", "decode_32k")
+            for multi in (False, True)} | {
+    ("mixtral-8x7b", "long_500k", multi) for multi in (False, True)}
 
 # the phase 15 cell (with argv[2] "phase15"), and the records of the
 # cells in argv[1]
@@ -78,9 +85,9 @@ def _env():
                 OMP_NUM_THREADS="1")
 
 
-def _cli(out, *args):
+def _cli(out, *args, mesh="single"):
     return [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
-            "cpu", "--mesh", "single", "--out", str(out), *args]
+            "cpu", "--mesh", mesh, "--out", str(out), *args]
 
 
 def _wait(proc, timeout=TIMEOUT):
@@ -102,14 +109,20 @@ def runs(tmp_path_factory):
         "long": ["--arch", "granite-20b", "--shape", "long_500k"],
         "train": ["--arch", "granite-3-2b", "--shape", "train_4k",
                   "--variant", "micro_rows=16"],
+        "train_pod": ["--arch", "granite-3-2b", "--shape", "train_4k",
+                      "--variant", "micro_rows=8"],
     }
-    procs = {k: subprocess.Popen(_cli(tmp / f"{k}.json", *a), env=_env(),
-                                 text=True, stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE)
+    procs = {k: subprocess.Popen(
+        _cli(tmp / f"{k}.json", *a,
+             mesh="multi" if k == "train_pod" else "single"), env=_env(),
+        text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
              for k, a in cli.items()}
     groups = {"script": [c for c in OTHERS if c not in SERVE_OK]}
     for arch in sorted(RUNS_OK):
-        groups[arch] = [c for c in OTHERS if c in SERVE_OK and c[0] == arch]
+        for multi in (False, True):
+            groups[f"{arch}/{multi}"] = [
+                c for c in OTHERS if c in SERVE_OK and c[0] == arch
+                and c[2] == multi]
     for k, cells in groups.items():
         procs[k] = subprocess.Popen(
             [sys.executable, "-c", _SCRIPT, json.dumps(cells),
@@ -171,9 +184,10 @@ def test_skip_cell_documented(runs):
     assert "sub-quadratic" in rec["reason"]
 
 
-def _check_ok(rec, n_micro):
+def _check_ok(rec, n_micro, multi=False):
     assert rec["status"] == "ok", rec.get("traceback")
-    assert rec["chips"] == 256 and rec["mesh"] == "single_pod_16x16"
+    assert (rec["chips"], rec["mesh"]) == (
+        (512, "multi_pod_2x16x16") if multi else (256, "single_pod_16x16"))
     assert rec["n_micro"] == n_micro
     t = rec["roofline"]
     for k in ("compute_s", "memory_s", "collective_s", "bound_s",
@@ -199,6 +213,26 @@ def test_train_cell_runs_one_microbatch(runs):
     _check_ok(rec, n_micro=1)
     assert rec["variant"] == "micro_rows=16"
     assert "1 ok, 0 skip, 0 not_ported, 0 fail" in stdout
+
+
+def test_pod_train_cell_runs_one_microbatch(runs):
+    """granite-3-2b ``train_4k`` on ``(2, 16, 16)`` at ``micro_rows`` 8:
+    one microbatch of 8 rows a rank (256 over 32 batch shards), the same
+    param shards as on ``(16, 16)`` (the gathers and reduce-scatters
+    over ``data`` alike, call for call), and each gradient leaf
+    all-reduced over ``pod``: more all-reduces than on ``(16, 16)``."""
+    (rec,), stdout = runs["train_pod"]
+    _check_ok(rec, n_micro=1, multi=True)
+    assert rec["variant"] == "micro_rows=8"
+    assert "1 ok, 0 skip, 0 not_ported, 0 fail" in stdout
+    assert 0 <= rec["groups_s"] < 60
+    (flat,), _ = runs["train"]
+    pod, one = rec["collectives"]["counts"], flat["collectives"]["counts"]
+    for kind in ("all-gather", "reduce-scatter"):
+        assert pod[kind] == one[kind], kind
+    assert pod["all-reduce"] > one["all-reduce"]
+    assert rec["memory"]["argument_bytes"] == flat["memory"][
+        "argument_bytes"]
 
 
 def test_phase15_cell_counts_what_the_ranks_measured(runs):
@@ -227,11 +261,11 @@ def test_phase15_cell_counts_what_the_ranks_measured(runs):
 def test_no_cell_fails(runs, arch, shape, multi):
     """Every other cell of ``--arch all --shape all --mesh both``: the
     prefill, decode and long cells of the dense GQA / MQA and MoE archs
-    on ``(16, 16)`` run (``SERVE_OK``: 7, with the three train cells 10
-    ok), long contexts on a full-attention arch skip with the twin's
-    reason (12), the rest name item 12e-ii (58: the families the rank
-    steps do not run, the pod axis, llama4-scout's 40 heads over 16
-    model ranks)."""
+    on ``(16, 16)`` and ``(2, 16, 16)`` run (``SERVE_OK``: 14, with the
+    six train cells 20 ok), long contexts on a full-attention arch skip
+    with the twin's reason (12), the rest name item 12e-ii (48: the
+    families the rank steps do not run, on either mesh, and
+    llama4-scout's 40 heads over 16 model ranks, on either mesh)."""
     r = runs["others"][f"{arch}/{shape}/{multi}"]
     assert r["mesh"] == ("multi_pod_2x16x16" if multi
                          else "single_pod_16x16")
@@ -246,21 +280,27 @@ def test_no_cell_fails(runs, arch, shape, multi):
         assert "sub-quadratic" in r["reason"]
         return
     assert "item 12e-ii" in r["reason"]
-    if arch == "llama4-scout-17b-a16e" and not multi:
+    assert arch not in RUNS_OK
+    assert "pod" not in r["reason"]
+    if arch == "llama4-scout-17b-a16e":
         assert "40 heads over 16 model ranks" in r["reason"]
-    elif multi and arch in RUNS_OK | {"llama4-scout-17b-a16e"}:
-        assert f"the {kind} step of a mesh with a pod axis" in r["reason"]
     else:
         assert f"the {kind} step of " in r["reason"]
 
 
 def test_cell_statuses_add_up():
-    """The 80 cells: 10 ok, 12 skip, 58 not_ported (as pinned above)."""
+    """The 80 cells: 20 ok, 12 skip, 48 not_ported (as pinned above): a
+    mesh with a pod axis runs the dense and MoE families' cells as the
+    ``(16, 16)`` mesh does, and refuses the others' as it does."""
     skip = [c for c in OTHERS if c[1] == "long_500k"
             and not configs.get_arch(c[0]).CONFIG.subquadratic]
-    assert len(OTHERS) + len(RUNS_OK) == 80
-    assert (len(RUNS_OK) + len(SERVE_OK), len(skip),
-            len(OTHERS) - len(SERVE_OK) - len(skip)) == (10, 12, 58)
+    train = 2 * len(RUNS_OK)
+    assert len(OTHERS) + train == 80
+    assert (train + len(SERVE_OK), len(skip),
+            len(OTHERS) - len(SERVE_OK) - len(skip)) == (20, 12, 48)
+    for multi in (False, True):
+        assert {(a, s) for a, s, m in SERVE_OK if m == multi} == {
+            (a, s) for a, s, m in SERVE_OK if m != multi}
 
 
 @pytest.mark.slow

@@ -11,15 +11,19 @@ it to that file.
 
 * ``LMHarness.make_train_step`` on ``(2, 2)`` and ``(4, 2)`` meshes
   (``n_micro`` 4 and 2 at B 8, microbatches strided across the data
-  shards), float32, every constant leaf randomized: granite-3-2b, and
-  mixtral-8x7b and llama4-scout with ``moe_ep`` off and on, at capacity
-  factor 0.5 so capacity drops (token, expert) pairs in every
-  microbatch (llama4-scout with ``moe_ep`` on the 4 x 2 mesh only). The loss to rtol 1e-5, ``grad_norm`` to 1e-4, Adam's ``m``
-  and ``v`` within ``grads_close`` (rtol 1e-4 + atol 1e-4 x max), the
-  new params within Adam's first-step bound of that gradient tolerance.
+  shards) and on ``(2, 2, 2)`` and ``(2, 2, 1)`` meshes with a ``pod``
+  axis (the batch over ``(pod, data)``), float32, every constant leaf
+  randomized: granite-3-2b, and mixtral-8x7b and llama4-scout with
+  ``moe_ep`` off and on, at capacity factor 0.5 so capacity drops
+  (token, expert) pairs in every microbatch (llama4-scout with
+  ``moe_ep`` on the 4 x 2 and 2 x 2 x 1 meshes only). The loss to rtol
+  1e-5, ``grad_norm`` to 1e-4, Adam's ``m`` and ``v`` within
+  ``grads_close`` (rtol 1e-4 + atol 1e-4 x max), the new params within
+  Adam's first-step bound of that gradient tolerance.
   With ``moe_ep`` each data row routes its own tokens under its own
   capacity, so the mesh changes the numbers and a wrong split or a wrong
-  exchange shows.
+  exchange shows; across pods the aux loss is pod 0's, its gradient the
+  mean's over every pod's rows, as the twin's.
 * ``moe_forward_ep`` alone on the capacity path (the same dropped pairs:
   a pair dropped on one side only moves its token's output by far more
   than 1e-5), and dropless against the dense dispatch at JAX's own
@@ -42,7 +46,11 @@ pytest.importorskip("jax")
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.configs.shapes import Shape  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh, use_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    LMMesh,
+    make_host_mesh,
+    use_mesh,
+)
 from repro_torch.launch.steps import LMHarness  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.tree import leaves, unflatten  # noqa: E402
@@ -60,8 +68,22 @@ TRAIN_CASES = [
     ("mixtral-8x7b", False, (2, 2)), ("mixtral-8x7b", False, (4, 2)),
     ("mixtral-8x7b", True, (2, 2)), ("mixtral-8x7b", True, (4, 2)),
     ("llama4-scout-17b-a16e", True, (4, 2)),
+    ("granite-3-2b", False, (2, 2, 1)),
+    ("mixtral-8x7b", False, (2, 2, 2)), ("mixtral-8x7b", True, (2, 2, 2)),
+    ("llama4-scout-17b-a16e", True, (2, 2, 1)),
 ]
-EP_MESHES = [(2, 2), (4, 2)]
+EP_MESHES = [(2, 2), (4, 2), (2, 2, 2)]
+
+
+def _tag(shape):
+    return "x".join(map(str, shape))
+
+
+def _host_mesh(shape):
+    """The logical mesh of ``shape`` on ``cpu``: a leading ``pod`` axis on
+    three entries."""
+    return LMMesh(("pod", "data", "model")[-len(shape):], shape,
+                  ("cpu",) * int(np.prod(shape)))
 
 # runs under JAX with 8 faked devices; prints OK at the end
 _JAX_SIDE = r"""
@@ -80,9 +102,9 @@ out = {}
 
 
 def mesh_of(shape):
-    n = shape[0] * shape[1]
+    n = int(np.prod(shape))
     return jax.sharding.Mesh(np.asarray(jax.devices()[:n]).reshape(shape),
-                             ("data", "model"))
+                             ("pod", "data", "model")[-len(shape):])
 
 
 def randomized(tree, seed):
@@ -113,7 +135,7 @@ def put(prefix, tree):
 
 rng = np.random.default_rng(0)
 for arch, ep, shape in TRAIN_CASES:
-    tag = f"train/{arch}/{ep}/{shape[0]}x{shape[1]}"
+    tag = f"train/{arch}/{ep}/" + "x".join(map(str, shape))
     mesh = mesh_of(shape)
     h = LMHarness(arch, cfg=cfg_of(arch, moe_ep=ep))
     params = randomized(h.model.init(jax.random.key(0)), 100)
@@ -146,11 +168,11 @@ for shape in EP_MESHES:
     mesh = mesh_of(shape)
     with mesh:
         xs = jax.device_put(x, jax.sharding.NamedSharding(
-            mesh, jax.sharding.PartitionSpec("data")))
+            mesh, jax.sharding.PartitionSpec(mesh.axis_names[:-1])))
         y, aux = jax.jit(lambda p, x: moe_mod.moe_forward_ep(p, x, cfg)).lower(
             p, xs).compile(compiler_options=FAST_XLA)(p, xs)
-    out[f"ep/{shape[0]}x{shape[1]}/out"] = np.asarray(y)
-    out[f"ep/{shape[0]}x{shape[1]}/aux"] = np.asarray(aux)
+    out["ep/" + "x".join(map(str, shape)) + "/out"] = np.asarray(y)
+    out["ep/" + "x".join(map(str, shape)) + "/aux"] = np.asarray(aux)
 
 arch = "llama4-scout-17b-a16e"
 mesh = mesh_of((2, 2))
@@ -250,9 +272,9 @@ def drops(monkeypatch):
 
 @pytest.mark.parametrize("arch,ep,shape", TRAIN_CASES)
 def test_mesh_train_step_matches_jax(jax_side, drops, arch, ep, shape):
-    tag = f"train/{arch}/{ep}/{shape[0]}x{shape[1]}"
+    tag = f"train/{arch}/{ep}/{_tag(shape)}"
     h = LMHarness(arch, cfg=_cfg(arch, moe_ep=ep))
-    mesh = make_host_mesh(data=shape[0], model=shape[1], devices=["cpu"])
+    mesh = _host_mesh(shape)
     assert mesh.physical_devices == (torch.device("cpu"),)
     sh = Shape("mesh", S, B, "train")
     assert h.n_microbatches(sh, mesh) == int(jax_side[tag + "/n_micro"])
@@ -283,7 +305,7 @@ def test_moe_ep_routes_each_data_row_alone(jax_side):
     than the dense dispatch over the whole microbatch (JAX's losses
     differ); on a 1 x 1 mesh, one row a microbatch, the two agree."""
     for shape in EP_MESHES:
-        tag = f"{shape[0]}x{shape[1]}"
+        tag = _tag(shape)
         assert abs(float(jax_side[f"train/mixtral-8x7b/True/{tag}/loss"])
                    - float(jax_side[f"train/mixtral-8x7b/False/{tag}/loss"])
                    ) > 1e-4
@@ -308,15 +330,16 @@ def test_moe_forward_ep_capacity_matches_jax(jax_side, drops, shape):
     like = tmoe.init_moe(prng.key(0), cfg, device="cpu")
     p = _tree(like, jax_side, "ep/params")
     x = torch.from_numpy(jax_side["ep/x"])
-    mesh = make_host_mesh(data=shape[0], model=shape[1], devices=["cpu"])
+    mesh = _host_mesh(shape)
     with use_mesh(mesh):
         y, aux = tmoe.moe_forward_ep(p, x, cfg)
-    tag = f"ep/{shape[0]}x{shape[1]}"
+    tag = f"ep/{_tag(shape)}"
     np.testing.assert_allclose(y.numpy(), jax_side[tag + "/out"],
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(float(aux), float(jax_side[tag + "/aux"]),
                                rtol=1e-6)
-    assert len(drops) == shape[0] and sum(drops) > 0
+    # one route a batch-shard row: pod x data of them
+    assert len(drops) == int(np.prod(shape[:-1])) and sum(drops) > 0
 
 
 @pytest.mark.parametrize("arch,shape", [("mixtral-8x7b", (4, 2)),

@@ -10,7 +10,10 @@ two runs side by side, each with a timeout:
 * one subprocess runs JAX's ``make_train_step`` (``jax.jit`` with the
   partitioner's shardings) on 4 faked CPU devices, its environment
   scrubbed of ``JAX_*`` and ``XLA_*`` as ``tests/test_torch_lm_mesh.py``
-  runs its mesh, over the meshes ``(2, 2)``, ``(4, 1)`` and ``(1, 4)``;
+  runs its mesh, over the meshes ``(2, 2)``, ``(4, 1)`` and ``(1, 4)``
+  of ``("data", "model")`` and ``(2, 2, 1)`` and ``(2, 1, 2)`` of
+  ``("pod", "data", "model")`` (the batch over ``(pod, data)``, the
+  params replicated over ``pod``);
 * one launch of 4 gloo ranks (a ``FileStore`` under a temporary
   directory: xdist workers never collide on a port; one torch thread a
   rank) runs the port's rank step on the same cases, gathers the new
@@ -69,7 +72,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, S = 8, 16
 CF = 0.5                 # the MoE cases' capacity factor: drops in each
 LOSS_RTOL, NORM_RTOL = 1e-5, 1e-4
-MESHES = [(2, 2), (4, 1), (1, 4)]
+POD_MESHES = [(2, 2, 1), (2, 1, 2)]
+MESHES = [(2, 2), (4, 1), (1, 4)] + POD_MESHES
+# the local-shape cases: the test meshes and the production ones
+SHARD_MESHES = MESHES[:3] + [(16, 16)] + POD_MESHES + [(2, 16, 16)]
 ARCHS = ["granite-3-2b", "mixtral-8x7b", "llama4-scout-17b-a16e"]
 CASES = [(arch, ep, mesh) for mesh in MESHES for arch, ep in (
     ("granite-3-2b", False), ("mixtral-8x7b", False), ("mixtral-8x7b", True),
@@ -78,7 +84,12 @@ TIMEOUT = 600            # seconds a launch may take before it fails
 
 
 def _tag(arch, ep, mesh):
-    return f"{arch}/{ep}/{mesh[0]}x{mesh[1]}"
+    return f"{arch}/{ep}/" + "x".join(map(str, mesh))
+
+
+def _names(mesh):
+    """The axis names of a mesh shape: a leading ``pod`` axis on three."""
+    return ("pod", "data", "model")[-len(mesh):]
 
 
 # runs under JAX with 4 faked devices; prints OK at the end
@@ -94,9 +105,9 @@ B, S, CF = %(B)d, %(S)d, %(CF)r
 FAST_XLA = {"xla_backend_optimization_level": 0}
 out = {}
 for arch, ep, shape in json.loads(sys.argv[3]):
-    tag = f"{arch}/{ep}/{shape[0]}x{shape[1]}"
+    tag = f"{arch}/{ep}/" + "x".join(map(str, shape))
     mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(shape),
-                             ("data", "model"))
+                             ("pod", "data", "model")[-len(shape):])
     cfg = dataclasses.replace(configs.get_arch(arch).REDUCED,
                               dtype=jnp.float32, moe_ep=ep)
     if cfg.moe is not None:
@@ -164,10 +175,10 @@ groups[(2, 2)] = pg.init_ranks(("data", "model"), (2, 2), rank=rank,
 out, shapes = {}, {}
 for arch, ep, shape in json.loads(sys.argv[5]):
     shape = tuple(shape)
-    tag = f"{arch}/{ep}/{shape[0]}x{shape[1]}"
+    tag = f"{arch}/{ep}/" + "x".join(map(str, shape))
     if shape not in groups:
-        groups[shape] = pg.mesh_groups(("data", "model"), shape, "cpu",
-                                       timeout_s=%(TIMEOUT)d)
+        groups[shape] = pg.mesh_groups(("pod", "data", "model")[-len(shape):],
+                                       shape, "cpu", timeout_s=%(TIMEOUT)d)
     g = groups[shape]
     mesh = make_rank_mesh(g)
     cfg = dataclasses.replace(configs.get_arch(arch).REDUCED,
@@ -234,7 +245,7 @@ for arch, ep, shape in json.loads(sys.argv[1]):
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=CF))
-    out[f"{arch}/{ep}/{shape[0]}x{shape[1]}"] = dryrun.run_cell(
+    out[f"{arch}/{ep}/" + "x".join(map(str, shape))] = dryrun.run_cell(
         arch, Shape("ranks", S, B, "train"), mesh=tuple(shape), cfg=cfg,
         device="cpu", verbose=False)
 with open(sys.argv[2], "w") as f:
@@ -287,10 +298,11 @@ RESUME = ["--steps", "4", "--checkpoint-every", "2"]
 @pytest.fixture(scope="module")
 def launches(tmp_path_factory):
     """The launcher's runs that need no other's result, started at once
-    and each waited for, with a timeout, by its tests: uninterrupted, and
-    cut at step 3 by rank 0 alone raising (``--fail-rank 0``: the writer
+    and each waited for, with a timeout, by its tests: uninterrupted, cut
+    at step 3 by rank 0 alone raising (``--fail-rank 0``: the writer
     waits for its last checkpoint first; the other ranks wait in a
-    collective until the launcher ends them)."""
+    collective until the launcher ends them), and uninterrupted on a
+    ``2x2x1`` mesh with a pod axis."""
     tmp = tmp_path_factory.mktemp("launch")
 
     def start(*args):
@@ -302,6 +314,8 @@ def launches(tmp_path_factory):
         "whole": start(*RESUME, "--checkpoint-dir", str(tmp / "a")),
         "cut": start(*RESUME, "--checkpoint-dir", str(tmp / "b"),
                      "--fail-at-step", "3", "--fail-rank", "0"),
+        "pod": start(*RESUME, "--checkpoint-dir", str(tmp / "c"),
+                     "--mesh", "2x2x1"),
     }
     procs = {k: (p, []) for k, p in procs.items()}
     yield tmp, procs
@@ -466,8 +480,7 @@ def test_ranks_match_the_logical_mesh(runs, drops, arch, ep, mesh):
     inp = runs["inputs"]
     params = convert.lm_params(unflatten(like, [
         inp[f"params/{arch}/{i}"] for i in range(n)]))
-    lmesh = tmesh.make_host_mesh(data=mesh[0], model=mesh[1],
-                                 devices=["cpu"])
+    lmesh = tmesh.LMMesh(_names(mesh), mesh, ("cpu",) * int(np.prod(mesh)))
     sh = Shape("ranks", S, B, "train")
     assert h.n_microbatches(sh, lmesh) == int(runs["jax"][tag + "/n_micro"])
     new, opt, metrics = h.make_train_step(sh, lmesh)(
@@ -487,19 +500,27 @@ def test_ranks_match_the_logical_mesh(runs, drops, arch, ep, mesh):
 def test_no_rank_holds_a_full_sharded_leaf(runs, mesh):
     """On every rank the params, Adam's moments and the float32
     accumulator have the shard's shape (a leaf the mesh shards is never
-    whole), the step's loss and norm agree across ranks, and the
-    gradient is reduce-scattered each microbatch where ``data`` > 1."""
+    whole; on a pod mesh the same shapes as on its ``(data, model)``
+    mesh: the params replicate over ``pod``), the step's loss and norm
+    agree across ranks, the gradient is reduce-scattered each microbatch
+    where ``data`` > 1, and on a pod mesh every leaf's gradient is
+    all-reduced (over ``pod``) once a step."""
     for arch, ep, m in CASES:
         if m != mesh:
             continue
         tag = _tag(arch, ep, mesh)
         h = LMHarness(arch, cfg=_cfg(arch, moe_ep=ep))
-        lm = tmesh.LMMesh(("data", "model"), mesh)
+        lm = tmesh.LMMesh(_names(mesh), mesh)
+        flat = tmesh.LMMesh(("data", "model"), mesh[-2:])
         shard = leaves(tpart.params_partition(h.param_shapes(), lm,
                                               h.rules(lm)))
         full = [tuple(t.shape) for t in leaves(h.param_shapes())]
         want = [list(tpart.shard_shape(s, f)) for s, f in zip(shard, full)]
         assert any(list(f) != w for f, w in zip(full, want)), tag
+        assert want == [list(tpart.shard_shape(s, f)) for s, f in zip(
+            leaves(tpart.params_partition(h.param_shapes(), flat,
+                                          h.rules(flat))), full)], tag
+        n_data = lm.shape["data"]
         for r in range(4):
             got = runs["shapes"][r][tag]
             for key in ("params", "m", "v", "acc"):
@@ -508,17 +529,18 @@ def test_no_rank_holds_a_full_sharded_leaf(runs, mesh):
             assert got["grad_norm"] == runs["shapes"][0][tag]["grad_norm"]
             n_micro = int(runs["jax"][tag + "/n_micro"])
             rs = got["calls"].get("reduce_scatter", 0)
-            assert rs % n_micro == 0 and (rs > 0 or mesh[0] == 1), (tag,
-                                                                     rs)
+            assert rs % n_micro == 0 and (rs > 0 or n_data == 1), (tag, rs)
+            if "pod" in lm.axis_names:
+                assert got["calls"]["all_reduce"] >= len(full), tag
 
 
 def _abstract(shape):
-    names = ("data", "model")
+    names = _names(shape)
     return (jax.sharding.AbstractMesh(shape, names),
             tmesh.LMMesh(names, shape))
 
 
-@pytest.mark.parametrize("mesh", MESHES + [(16, 16)])
+@pytest.mark.parametrize("mesh", SHARD_MESHES)
 @pytest.mark.parametrize("arch", ["granite-3-2b", "mixtral-8x7b"])
 def test_shard_shapes_match_jax(arch, mesh):
     """Every param and optimizer leaf's local shape == JAX's
@@ -540,14 +562,14 @@ def test_shard_shapes_match_jax(arch, mesh):
                 js.shard_shape(tuple(jshape)))
 
 
-@pytest.mark.parametrize("mesh", MESHES + [(16, 16)])
+@pytest.mark.parametrize("mesh", MESHES[:3] + [(16, 16)] + POD_MESHES)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_shard_then_gather_is_the_identity(arch, mesh):
     """``convert.lm_rank_params`` for every rank, then
     ``convert.lm_params_of_ranks``, gives the tree back exactly; each
     rank's shard is a block of the shard shape."""
     h = LMHarness(arch, cfg=_cfg(arch))
-    lm = tmesh.LMMesh(("data", "model"), mesh)
+    lm = tmesh.LMMesh(_names(mesh), mesh)
     shard = tpart.params_partition(h.param_shapes(), lm, h.rules(lm))
     tree = unflatten(h.param_shapes(), _params_np(arch, 0))
     per_rank = [convert.lm_rank_params(tree, shard, r)
@@ -568,7 +590,7 @@ def test_sharded_init_is_the_cut_of_the_whole_draw(arch, mesh):
     as it is drawn, gives every rank exactly its shards of the whole
     draw."""
     h = LMHarness(arch, cfg=_cfg(arch))
-    lm = tmesh.LMMesh(("data", "model"), mesh)
+    lm = tmesh.LMMesh(_names(mesh), mesh)
     shard = tpart.params_partition(h.param_shapes(), lm, h.rules(lm))
     whole = h.model.init(0, device="cpu")
     for r in (0, lm.size - 1):
@@ -618,6 +640,34 @@ def test_launcher_resume_equals_the_uninterrupted_run(launches):
         assert tuple(a[key].shape) == tuple(t.shape), key
 
 
+def test_launcher_runs_a_pod_mesh(launches):
+    """``launch.train --ranks --mesh 2x2x1`` (the batch over ``(pod,
+    data)``, the params replicated over ``pod``) trains as ``--mesh 2x2``
+    does: its final checkpoint, gathered in the one-process layout, holds
+    the same leaves, the same Adam step, and params within 4 AdamW steps'
+    reach (2 lr each) of the ``2x2`` run's, which sums the same gradients
+    in another order."""
+    tmp, procs = launches
+    rc, out, err = _wait(procs["pod"])
+    assert rc == 0, err[-3000:]
+    assert "ranks=2x2x1" in out and "[train] 4 ranks done" in out
+    rc, _, err = _wait(procs["whole"])
+    assert rc == 0, err[-3000:]
+    from repro_torch import checkpoint as ckpt
+
+    a, _ = ckpt.load(str(tmp / "a"), 4)
+    c, _ = ckpt.load(str(tmp / "c"), 4)
+    assert sorted(a) == sorted(c)
+    lr = 3e-4    # the launcher's default
+    for k in a:
+        assert a[k].shape == c[k].shape, k
+        if k.startswith("params/"):
+            assert torch.allclose(a[k].float(), c[k].float(), rtol=0,
+                                  atol=4 * 2 * lr), k
+        elif "step" in k:
+            assert torch.equal(a[k], c[k]), k
+
+
 def test_a_failing_rank_ends_the_launcher(launches):
     """Rank 0 alone raises at step 3; the others, in a collective with
     it, fail or are ended by the launcher, which exits nonzero well
@@ -655,7 +705,7 @@ def test_distinct_devices_outside_a_process_group_raise():
 
 
 def _fake_pod_mesh():
-    groups = pg.RankGroups(("pod", "data", "model"), (1, 2, 2), 0,
+    groups = pg.RankGroups(("pod", "data", "model"), (2, 1, 2), 0,
                            torch.device("cpu"), {})
     return tmesh.LMMesh(groups.axis_names, groups.sizes, ("cpu",) * 4,
                         ranks=groups)
@@ -664,28 +714,27 @@ def _fake_pod_mesh():
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 def test_serving_steps_across_ranks_raise(kind):
     """Prefill and decode run across ranks for the dense GQA / MQA and
-    MoE families (``tests/test_torch_lm_serve_ranks.py``); for the other
-    families, with ``moe_ep`` and on a mesh with a pod axis they still
-    raise, naming item 12e-ii, before any collective."""
+    MoE families (``tests/test_torch_lm_serve_ranks.py``), on a mesh with
+    a pod axis too; for the other families and with ``moe_ep`` they
+    still raise, naming item 12e-ii, before any collective, on both
+    kinds of mesh."""
     sh = Shape("t", S, B, kind)
     for arch in ("granite-3-2b", "granite-20b", "mixtral-8x7b",
                  "llama4-scout-17b-a16e"):
         h = LMHarness(arch, cfg=_cfg(arch))
         assert callable(h.step_fn(sh, _fake_rank_mesh(), kind))
+        assert callable(h.step_fn(sh, _fake_pod_mesh(), kind))
+    for mesh in (_fake_rank_mesh(), _fake_pod_mesh()):
+        for arch in ("minicpm3-4b", "gemma3-12b", "qwen2-vl-2b",
+                     "zamba2-1.2b", "rwkv6-7b", "whisper-large-v3"):
+            h = LMHarness(arch, cfg=tconfigs.get_arch(arch).REDUCED)
+            with pytest.raises(NotImplementedError,
+                               match=f"the {kind} step of .*item 12e-ii"):
+                h.step_fn(sh, mesh, kind)
+        h = LMHarness("mixtral-8x7b", cfg=_cfg("mixtral-8x7b", moe_ep=True))
         with pytest.raises(NotImplementedError,
-                           match=f"the {kind} step of a mesh with a pod "
-                                 f"axis.*item 12e-ii"):
-            h.step_fn(sh, _fake_pod_mesh(), kind)
-    for arch in ("minicpm3-4b", "gemma3-12b", "qwen2-vl-2b", "zamba2-1.2b",
-                 "rwkv6-7b", "whisper-large-v3"):
-        h = LMHarness(arch, cfg=tconfigs.get_arch(arch).REDUCED)
-        with pytest.raises(NotImplementedError,
-                           match=f"the {kind} step of .*item 12e-ii"):
-            h.step_fn(sh, _fake_rank_mesh(), kind)
-    h = LMHarness("mixtral-8x7b", cfg=_cfg("mixtral-8x7b", moe_ep=True))
-    with pytest.raises(NotImplementedError,
-                       match=f"the {kind} step of moe_ep.*item 12e-ii"):
-        h.step_fn(sh, _fake_rank_mesh(), kind)
+                           match=f"the {kind} step of moe_ep.*item 12e-ii"):
+            h.step_fn(sh, mesh, kind)
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "gemma3-12b",
@@ -693,25 +742,41 @@ def test_serving_steps_across_ranks_raise(kind):
                                   "whisper-large-v3"])
 def test_other_families_across_ranks_raise(arch):
     h = LMHarness(arch, cfg=tconfigs.get_arch(arch).REDUCED)
-    with pytest.raises(NotImplementedError, match="item 12e-ii"):
-        h.make_train_step(Shape("t", S, B, "train"), _fake_rank_mesh())
+    for mesh in (_fake_rank_mesh(), _fake_pod_mesh()):
+        with pytest.raises(NotImplementedError, match="item 12e-ii"):
+            h.make_train_step(Shape("t", S, B, "train"), mesh)
 
 
 def test_expert_parallel_lever_across_ranks_raises():
     h = LMHarness("mixtral-8x7b", cfg=_cfg("mixtral-8x7b"),
                   expert_parallel=True)
-    with pytest.raises(NotImplementedError, match="item 12e-ii"):
-        h.make_train_step(Shape("t", S, B, "train"), _fake_rank_mesh())
+    for mesh in (_fake_rank_mesh(), _fake_pod_mesh()):
+        with pytest.raises(NotImplementedError, match="item 12e-ii"):
+            h.make_train_step(Shape("t", S, B, "train"), mesh)
 
 
-@pytest.mark.parametrize("arch,ep", [("granite-3-2b", False),
-                                     ("mixtral-8x7b", True),
-                                     ("llama4-scout-17b-a16e", False)])
+ONE_RANK = [("granite-3-2b", False), ("mixtral-8x7b", True),
+            ("llama4-scout-17b-a16e", False)]
+
+
+@pytest.mark.parametrize("arch,ep", ONE_RANK)
 def test_one_rank_is_the_one_process_step_bit_for_bit(tmp_path, arch, ep):
     """A process group of one rank (gloo here, NCCL on a card) runs the
     rank step's code and gives the one-process step's bits: the loss, the
     norm, the new params and both moments."""
-    groups = pg.init_ranks(("data", "model"), (1, 1), rank=0,
+    _one_rank_bit_for_bit(tmp_path, arch, ep, (1, 1))
+
+
+@pytest.mark.parametrize("arch,ep", ONE_RANK)
+def test_one_rank_pod_mesh_is_the_one_process_step_bit_for_bit(tmp_path,
+                                                               arch, ep):
+    """The same on a ``(1, 1, 1)`` mesh with a pod axis: the pod sums
+    and the batch shards of one leave the bits alone."""
+    _one_rank_bit_for_bit(tmp_path, arch, ep, (1, 1, 1))
+
+
+def _one_rank_bit_for_bit(tmp_path, arch, ep, mesh):
+    groups = pg.init_ranks(_names(mesh), mesh, rank=0,
                            init_method=pg.file_init_method(str(tmp_path)),
                            device="cpu", timeout_s=60)
     try:

@@ -11,7 +11,9 @@ an ``.npz`` and starts three runs side by side, each with a timeout:
   under ``jax.jit`` with the partitioner's shardings (``shardings(shape,
   mesh, "prefill" | "decode")``) on 4 faked CPU devices, its environment
   scrubbed of ``JAX_*`` and ``XLA_*``, over the meshes ``(2, 2)``, ``(4,
-  1)`` and ``(1, 4)``;
+  1)`` and ``(1, 4)`` of ``("data", "model")`` and ``(2, 2, 1)`` and
+  ``(2, 1, 2)`` of ``("pod", "data", "model")`` (the rows and the cache
+  over ``(pod, data)``);
 * one launch of 4 gloo ranks (a ``FileStore`` under a temporary
   directory; one torch thread a rank) runs the port's rank steps on the
   same cases, gathers the cache to rank 0 and records every rank's cache
@@ -22,14 +24,14 @@ an ``.npz`` and starts three runs side by side, each with a timeout:
 
 A case prefills B 8 x S 16 and takes ``N_DEC`` teacher-forced decode
 steps (the cache is S long, so the ring wraps; mixtral's window of 8
-wraps it at prefill already). Two granite-3-2b cases have a cache of 17
-slots, which ``model`` does not divide, so the partitioner shards the
-K/V heads (``(2, 2)``) or replicates the ring over ``model`` (``(1,
-4)``); the other cases shard the slots over ``model``. Two cases decode
-from an empty cache, where the model ranks beyond the first hold no
-valid slot. Held: the prefill's logits to ``F32_TOL``; every decode
-step's tokens equal; the gathered cache within ``F32_TOL`` with
-``slot_pos`` equal; every rank's cache shard shaped as
+wraps it at prefill already). Three granite-3-2b cases have a cache of
+17 slots, which ``model`` does not divide, so the partitioner shards the
+K/V heads (``(2, 2)``, ``(2, 1, 2)``) or replicates the ring over
+``model`` (``(1, 4)``); the other cases shard the slots over ``model``.
+Three cases decode from an empty cache, where the model ranks beyond the
+first hold no valid slot. Held: the prefill's logits to ``F32_TOL``;
+every decode step's tokens equal; the gathered cache within ``F32_TOL``
+with ``slot_pos`` equal; every rank's cache shard shaped as
 ``shard_shape(cache_partition(...))`` (JAX's ``NamedSharding.
 shard_shape`` at CONFIG width); the dry-run's collective calls and bytes
 by kind equal to what the ranks counted.
@@ -62,22 +64,31 @@ from test_torch_lm_train import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, S, N_DEC = 8, 16, 3
-MESHES = [(2, 2), (4, 1), (1, 4)]
+POD_MESHES = [(2, 2, 1), (2, 1, 2)]
+MESHES = [(2, 2), (4, 1), (1, 4)] + POD_MESHES
 ARCHS = ["granite-3-2b", "granite-20b", "mixtral-8x7b",
          "llama4-scout-17b-a16e"]
 # (arch, mesh, cache length, prefill first); without a prefill the
 # decode steps start from an empty cache at position 0
-CASES = ([(arch, mesh, S, True) for mesh in MESHES for arch in ARCHS]
+CASES = ([(arch, mesh, S, True) for mesh in MESHES for arch in ARCHS
+          if mesh not in POD_MESHES or arch != "llama4-scout-17b-a16e"]
          + [("granite-3-2b", (2, 2), S + 1, True),
             ("granite-3-2b", (1, 4), S + 1, True),
+            ("granite-3-2b", (2, 1, 2), S + 1, True),
             ("granite-3-2b", (1, 4), S, False),
-            ("mixtral-8x7b", (2, 2), S, False)])
+            ("mixtral-8x7b", (2, 2), S, False),
+            ("mixtral-8x7b", (2, 1, 2), S, False)])
 TIMEOUT = 600            # seconds a run may take before it fails
 
 
 def _tag(arch, mesh, T, prefill):
-    return f"{arch}/{T}/{'prefill' if prefill else 'empty'}/" \
-           f"{mesh[0]}x{mesh[1]}"
+    return f"{arch}/{T}/{'prefill' if prefill else 'empty'}/" + "x".join(
+        map(str, mesh))
+
+
+def _names(mesh):
+    """The axis names of a mesh shape: a leading ``pod`` axis on three."""
+    return ("pod", "data", "model")[-len(mesh):]
 
 
 def _ids(cases):
@@ -98,10 +109,10 @@ FAST_XLA = {"xla_backend_optimization_level": 0}
 toks = inp["tokens"]
 out = {}
 for arch, shape, T, prefill in json.loads(sys.argv[3]):
-    tag = f"{arch}/{T}/{'prefill' if prefill else 'empty'}/" \
-          f"{shape[0]}x{shape[1]}"
+    tag = f"{arch}/{T}/{'prefill' if prefill else 'empty'}/" + "x".join(
+        map(str, shape))
     mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(shape),
-                             ("data", "model"))
+                             ("pod", "data", "model")[-len(shape):])
     cfg = dataclasses.replace(configs.get_arch(arch).REDUCED,
                               dtype=jnp.float32)
     h = LMHarness(arch, cfg=cfg)
@@ -164,11 +175,11 @@ groups[(2, 2)] = pg.init_ranks(("data", "model"), (2, 2), rank=rank,
 out, recs = {}, {}
 for arch, shape, T, prefill in json.loads(sys.argv[5]):
     shape = tuple(shape)
-    tag = f"{arch}/{T}/{'prefill' if prefill else 'empty'}/" \
-          f"{shape[0]}x{shape[1]}"
+    tag = f"{arch}/{T}/{'prefill' if prefill else 'empty'}/" + "x".join(
+        map(str, shape))
     if shape not in groups:
-        groups[shape] = pg.mesh_groups(("data", "model"), shape, "cpu",
-                                       timeout_s=%(TIMEOUT)d)
+        groups[shape] = pg.mesh_groups(("pod", "data", "model")[-len(shape):],
+                                       shape, "cpu", timeout_s=%(TIMEOUT)d)
     g = groups[shape]
     mesh = make_rank_mesh(g)
     cfg = dataclasses.replace(configs.get_arch(arch).REDUCED,
@@ -234,8 +245,8 @@ from repro_torch.launch import dryrun
 B = %(B)d
 out = {}
 for arch, shape, T, prefill in json.loads(sys.argv[1]):
-    tag = f"{arch}/{T}/{'prefill' if prefill else 'empty'}/" \
-          f"{shape[0]}x{shape[1]}"
+    tag = f"{arch}/{T}/{'prefill' if prefill else 'empty'}/" + "x".join(
+        map(str, shape))
     cfg = dataclasses.replace(configs.get_arch(arch).REDUCED,
                               dtype=torch.float32)
     for kind in (("prefill", "decode") if prefill else ("decode",)):
@@ -372,8 +383,7 @@ def test_serve_ranks_match_the_logical_mesh(runs, arch, mesh, T, prefill):
     inp = runs["inputs"]
     params = convert.lm_params(unflatten(like, [
         inp[f"params/{arch}/{i}"] for i in range(len(leaves(like)))]))
-    lmesh = tmesh.make_host_mesh(data=mesh[0], model=mesh[1],
-                                 devices=["cpu"])
+    lmesh = tmesh.LMMesh(_names(mesh), mesh, ("cpu",) * int(np.prod(mesh)))
     toks = inp["tokens"]
     sd = Shape("serve", T, B, "decode")
     want = {}
@@ -404,13 +414,15 @@ def test_each_rank_holds_its_cache_shard(runs, arch, mesh, T, prefill):
     returns the whole batch's logits and the same tokens."""
     tag = _tag(arch, mesh, T, prefill)
     h = LMHarness(arch, cfg=_cfg(arch))
-    lm = tmesh.LMMesh(("data", "model"), mesh)
+    lm = tmesh.LMMesh(_names(mesh), mesh)
     c_shapes = h.cache_shapes(Shape("serve", T, B, "decode"))
     c_shard = tpart.cache_partition(c_shapes, lm, h.rules(lm))
     want = {k: list(tpart.shard_shape(c_shard[k], c_shapes[k].shape))
             for k in c_shapes}
     layout = tpart.kv_layout(tpart.layer_shardings(c_shard)["k"])
-    if layout != "replicated" or mesh[0] > 1:   # the ring is cut
+    if len(mesh) == 3:   # the rows over (pod, data): a batch shard's
+        assert want["k"][1] == B // (mesh[0] * mesh[1]), tag
+    if layout != "replicated" or np.prod(mesh[:-1]) > 1:   # the ring is cut
         assert want["k"] != list(c_shapes["k"].shape), tag
     for r in range(4):
         rec = runs["recs"][r][tag]
@@ -424,24 +436,30 @@ def test_the_three_cache_layouts_are_covered():
     """The cases meet each layout the partitioner gives a K/V ring: the
     slots over ``model``, the K/V heads over it, and replicated."""
     seen = set()
+    pod_seen = set()
     for arch, mesh, T, _ in CASES:
         h = LMHarness(arch, cfg=_cfg(arch))
-        lm = tmesh.LMMesh(("data", "model"), mesh)
+        lm = tmesh.LMMesh(_names(mesh), mesh)
         sh = tpart.cache_partition(h.cache_shapes(
             Shape("serve", T, B, "decode")), lm, h.rules(lm))
-        if mesh[1] > 1:
-            seen.add(tpart.kv_layout(tpart.layer_shardings(sh)["k"]))
+        if mesh[-1] > 1:
+            layout = tpart.kv_layout(tpart.layer_shardings(sh)["k"])
+            seen.add(layout)
+            if len(mesh) == 3:
+                pod_seen.add(layout)
     assert seen == {"seq", "heads", "replicated"}
+    assert pod_seen == {"seq", "heads"}
 
 
 @pytest.mark.parametrize("arch,mesh", [("granite-3-2b", (1, 4)),
-                                       ("mixtral-8x7b", (2, 2))])
+                                       ("mixtral-8x7b", (2, 2)),
+                                       ("mixtral-8x7b", (2, 1, 2))])
 def test_decode_from_an_empty_cache(runs, arch, mesh):
     """From an empty cache the first decode step writes slot 0 alone, so
     the model ranks but the first hold no valid slot; their softmax parts
     add nothing, and the steps still equal JAX's (above)."""
     tag = _tag(arch, mesh, S, False)
-    M = mesh[1]
+    M = mesh[-1]
     T_l = LMHarness(arch, cfg=_cfg(arch)).model.cache_len(S) // M
     for r in range(4):
         valid = runs["recs"][r][tag]["valid"]
@@ -482,12 +500,13 @@ def test_dryrun_counts_what_the_ranks_did(runs, arch, mesh, T, prefill):
 
 
 def _abstract(shape):
-    names = ("data", "model")
+    names = _names(shape)
     return (jax.sharding.AbstractMesh(shape, names),
             tmesh.LMMesh(names, shape))
 
 
-@pytest.mark.parametrize("mesh", MESHES + [(16, 16)])
+@pytest.mark.parametrize("mesh", MESHES[:3] + [(16, 16)] + POD_MESHES
+                         + [(2, 16, 16)])
 @pytest.mark.parametrize("arch,shape", [("granite-3-2b", "decode_32k"),
                                         ("granite-20b", "decode_32k"),
                                         ("mixtral-8x7b", "long_500k"),

@@ -84,6 +84,44 @@ def test_tree_flatten_order_and_paths_match_jax():
     assert ttree.unflatten(tree, ttree.leaves(tree))["z"][1][1] is None
 
 
+@pytest.mark.parametrize("walk", ["leaves", "flatten_with_paths",
+                                  "unflatten", "tree_map", "structure_str",
+                                  "clip_by_global_norm"])
+def test_tree_walks_leave_no_reference_cycle(walk):
+    """With the cyclic collector off, a tensor that went through a walk
+    of ``tree.py`` (or the clip, which flattens the gradients) is freed
+    as soon as its caller drops it, and the walk leaves no garbage for
+    the collector: no walk's frame or closure keeps the leaves alive
+    (ROADMAP Queue 3 fault 10: the unclipped float32 gradients lived
+    through AdamW)."""
+    import gc
+    import weakref
+
+    def run():
+        t = torch.ones(4)
+        tree = {"b": [t, None], "a": (torch.zeros(2),)}
+        out = {
+            "leaves": lambda: ttree.leaves(tree),
+            "flatten_with_paths": lambda: ttree.flatten_with_paths(tree),
+            "unflatten": lambda: ttree.unflatten(tree, ttree.leaves(tree)),
+            "tree_map": lambda: ttree.tree_map(lambda x, y: x, tree, tree),
+            "structure_str": lambda: ttree.structure_str(tree),
+            "clip_by_global_norm": lambda: topt.clip_by_global_norm(tree,
+                                                                    1.0),
+        }[walk]()
+        del out
+        return weakref.ref(t)
+
+    gc.collect()
+    gc.disable()
+    try:
+        ref = run()
+        assert ref() is None, f"{walk} kept the tensor alive"
+        assert gc.collect() == 0, f"{walk} left a reference cycle"
+    finally:
+        gc.enable()
+
+
 # --------------------------------------------------------------------------
 # optimizers
 # --------------------------------------------------------------------------
