@@ -195,8 +195,12 @@ in phases that each exit non-zero on failure:
    1)``), each held to the one-card logical step of the same mesh (loss
    rel 1e-5, grad norm 1e-4, Adam's m and v within ``grads_close``, the
    params within Adam's first-step bound; on one rank bit for bit); with
-   four cards granite-3-2b whole in bf16 on ``(4, 1)`` and on ``(2, 2,
-   1)``, B 8 x S 512, ``micro_rows`` 2, 4 steps: per step loss, grad
+   four cards also float32 REDUCED cuts whose query heads ``model`` does
+   not divide (llama4-scout at 10 query / 2 K/V heads on ``(1, 4)`` and
+   5 / 1 on ``(2, 2)`` with ``moe_ep`` off and on and ``(2, 1, 2)``,
+   granite-3-2b at 10 / 2 and 10 / 5 on ``(1, 4)``), held alike, and
+   granite-3-2b whole in bf16 on ``(4, 1)`` and on ``(2, 2, 1)``, B 8 x
+   S 512, ``micro_rows`` 2, 4 steps: per step loss, grad
    norm, wall and CUDA-event ms and the NCCL calls and bytes by kind and
    by axis (the pod all-reduce apart), each rank's memory peak; the loss
    must fall; and the dry-run of each cell (below) counts the calls and
@@ -226,7 +230,18 @@ in phases that each exit non-zero on failure:
    tokens, each held to the one-card logical steps (logits and the
    gathered cache within 1e-5 of each tensor's scale, ``|d| <= 1e-5
    (|want| + max |want|)``, with ``slot_pos`` equal, tokens equal where
-   the one-card top-2 margin exceeds 1e-4; on one rank bit for bit); with four cards mixtral-8x7b whole in bf16 on ``(2, 2)``, which
+   the one-card top-2 margin exceeds 1e-4; on one rank bit for bit); with
+   four cards also float32 REDUCED cuts whose query heads ``model`` does
+   not divide (llama4-scout at 10 query / 2 K/V heads on ``(1, 4)`` and
+   5 / 1 on ``(2, 2)``, granite-3-2b at 10 / 2 and 10 / 5 on ``(1, 4)``;
+   the ring over ``model`` and replicated), held alike; llama4-scout at
+   its own widths with 10 query / 2 K/V heads on ``(1, 4)`` (a rank's
+   ``wq`` / ``wk`` / ``wo`` shard as on ``(16, 16)``), 2 layers, float32,
+   B 4 x S 512 and 16 decode steps, held alike, with the attention split
+   and under ``attn_tp=False``: each variant's decode step wall and
+   CUDA-event ms at p50 / p95, rank 0's busy and NCCL ms in a profiled
+   step, the NCCL calls and bytes, equal to its dry-run's; and
+   mixtral-8x7b whole in bf16 on ``(2, 2)``, which
    no one card holds: 8 prompts of 512 tokens, 32 greedy decode steps,
    per rank the memory peaks and param shard bytes, the prefill's wall,
    the decode step's wall and CUDA-event ms at p50 / p95, tokens/s, the
@@ -3959,6 +3974,28 @@ def phase_lm_serve_ranks(np, torch, card) -> dict:
             f"{c['bit_equal']}; prefill {c['prefill_ms']:.1f} ms, decode "
             f"{min(c['decode_ms']):.1f}-{max(c['decode_ms']):.1f} ms wall "
             f"({card})")
+    for c, d in zip(res["scout"], res.get("scout_dryrun") or []):
+        check(c["logits_ok"] and c["cache_ok"] and c["tokens_ok"],
+              f"{c['what']} on (1, 4) ranks vs the one-card logical mesh: "
+              f"{c}")
+        # the launcher held the dry-run's counts to every decode step's
+        log(f"serve ranks {c['what']} ({c['params']} params; "
+            f"{c['param_shard_bytes'] / 2**30:.2f} GiB a rank's shard) on "
+            f"(1, 4), {c['layout']} cache: prefill logits "
+            f"{c['logits_scaled_err']:.4f} x the tolerance, cache "
+            f"{max(c['cache_scaled_err'].values()):.4f}, tokens equal on "
+            f"{c['tokens_compared']} of {c['tokens_total']}; B "
+            f"{c['batch']} x {c['prompt']} prompt tokens, prefill "
+            f"{c['prefill_ms']:.1f} ms wall; {len(c['decode_ms'])} decode "
+            f"steps {c['decode_wall_ms_p50']:.2f} / "
+            f"{c['decode_wall_ms_p95']:.2f} ms wall p50 / p95, "
+            f"{c['decode_event_ms_p50']:.2f} / {c['decode_event_ms_p95']:.2f}"
+            f" ms between CUDA events; rank 0 busy {c['busy_ms']:.2f} ms in "
+            f"a profiled decode step ({c['nccl_busy_ms']:.2f} ms of it in "
+            f"NCCL kernels); NCCL calls {d['calls']} and bytes {d['bytes']}"
+            f" a step == the dry-run's (bound "
+            f"{d['roofline']['bound_s'] * 1e3:.3f} ms, "
+            f"{d['roofline']['dominant']}) ({card})")
     w = res["whole"]
     if w is not None:
         check(w["logits_finite"] and w["tokens_in_vocab"],

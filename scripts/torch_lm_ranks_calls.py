@@ -15,6 +15,12 @@ world allows (4: ``(2, 2)`` and ``(4, 1)`` of ``("data", "model")`` and
   params and Adam's moments and holds them to the one-card logical step
   of the same mesh at the CPU tests' tolerances (on one rank: bit for
   bit);
+* with 4 ranks, the same for query heads ``model`` does not divide
+  (``PARTIAL``, the CPU tests' cuts at REDUCED width): llama4-scout at
+  10 query and 2 K/V heads on ``(1, 4)`` and at 5 and 1 on ``(2, 2)``
+  (``moe_ep`` off and on) and ``(2, 1, 2)``, 2.5 query heads and half a
+  K/V head a rank as its 40 and 8 on 16 model ranks; granite-3-2b at
+  ``(10, 2)`` and ``(10, 5)`` on ``(1, 4)``;
 * with 4 ranks, granite-3-2b whole in bf16 on ``(4, 1)`` and on ``(2,
   2, 1)`` (the batch over ``(pod, data)``, every gradient leaf summed
   over ``pod``): B 8 x S 512,
@@ -55,6 +61,14 @@ LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
 MESHES = {4: [(2, 2), (4, 1), (2, 2, 1), (2, 1, 2)], 2: [(2, 1), (1, 2)],
           1: [(1, 1), (1, 1, 1)]}
 WHOLE_MESHES = [(4, 1), (2, 2, 1)]     # granite-3-2b whole, four ranks
+# four ranks: query heads model does not divide, REDUCED width, float32
+# (arch, (n_heads, n_kv_heads), moe_ep, mesh)
+PARTIAL = [("llama4-scout-17b-a16e", (10, 2), False, (1, 4)),
+           ("llama4-scout-17b-a16e", (5, 1), False, (2, 2)),
+           ("llama4-scout-17b-a16e", (5, 1), True, (2, 2)),
+           ("llama4-scout-17b-a16e", (5, 1), False, (2, 1, 2)),
+           ("granite-3-2b", (10, 2), False, (1, 4)),
+           ("granite-3-2b", (10, 5), False, (1, 4))]
 TIMEOUT_S = 900
 
 
@@ -351,28 +365,45 @@ def rank_main(args) -> None:
     from repro_torch import configs
     from repro_torch.distributed import process_group as pg
 
+    def case(*args):
+        """``f32_case`` with its seconds on this rank (rank 0's include
+        the one-card reference)."""
+        t1 = time.perf_counter()
+        rec = f32_case(np, torch, *args)
+        rec["seconds"] = time.perf_counter() - t1
+        return rec
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     world = args.world
     dev = torch.device("cuda", args.rank)
     meshes = MESHES[world]
+    partial = PARTIAL if world == 4 else []
     groups = {meshes[0]: pg.init_ranks(
         axis_names(meshes[0]), meshes[0], rank=args.rank,
         init_method=args.init_method, device=dev, timeout_s=TIMEOUT_S)}
-    for m in meshes[1:]:
-        groups[m] = pg.mesh_groups(axis_names(m), m, dev,
-                                   timeout_s=TIMEOUT_S)
+    for m in meshes[1:] + [c[3] for c in partial]:
+        if m not in groups:
+            groups[m] = pg.mesh_groups(axis_names(m), m, dev,
+                                       timeout_s=TIMEOUT_S)
     cases = []
     t0 = time.perf_counter()
     try:
         for m in meshes:
             g = groups[m]
-            cases.append(f32_case(np, torch, g, "granite-3-2b", cfg_of(
+            cases.append(case(g, "granite-3-2b", cfg_of(
                 configs, torch, "granite-3-2b", n_layers=2),
                 "granite-3-2b f32 2-layer cut"))
-            cases.append(f32_case(np, torch, g, "mixtral-8x7b", cfg_of(
+            cases.append(case(g, "mixtral-8x7b", cfg_of(
                 configs, torch, "mixtral-8x7b", n_layers=1, moe_ep=True),
                 "mixtral-8x7b f32 MoE layer, moe_ep"))
+        for arch, (H, KV), ep, m in partial:
+            cfg = dataclasses.replace(
+                configs.get_arch(arch).REDUCED, dtype=torch.float32,
+                n_heads=H, n_kv_heads=KV, moe_ep=ep)
+            cases.append(case(
+                groups[m], arch, cfg, f"{arch} f32 REDUCED, "
+                f"{H} query / {KV} K/V heads" + (", moe_ep" if ep else "")))
         wholes = ([whole_case(np, torch, groups[m]) for m in WHOLE_MESHES]
                   if world == 4 else [None, None])
     finally:

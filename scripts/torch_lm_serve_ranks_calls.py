@@ -25,6 +25,25 @@ world allows (4: ``(2, 2)``, ``(4, 1)`` and ``(1, 4)`` of ``("data",
   bit for bit. Beside it, for the dense archs, the one-card prefill of
   the batch's first ``B / 2`` rows against its whole batch's: that
   spread alone;
+* with 4 ranks, the same for query heads ``model`` does not divide
+  (``PARTIAL``, the CPU tests' cuts at REDUCED width): llama4-scout at
+  10 query and 2 K/V heads on ``(1, 4)`` and at 5 and 1 on ``(2, 2)``,
+  granite-3-2b at ``(10, 2)`` and ``(10, 5)`` on ``(1, 4)``, on a ring
+  of ``S + 8`` slots (over ``model``) and of ``S + 9`` (replicated);
+* with 4 ranks, llama4-scout at its own widths (d_model 5120, head_dim
+  128, d_ff 8192, 16 experts and the shared one, vocab 202048) with 10
+  query and 2 K/V heads on ``(1, 4)``: each rank's ``wq`` / ``wk`` /
+  ``wo`` shard is the ``(5120, 320)`` / ``(5120, 64)`` / ``(320, 5120)``
+  a rank of ``(16, 16)`` holds, 2 of 48 layers, float32 (6.4 B params).
+  ``SCOUT_B`` prompts of ``SCOUT_S`` tokens, then ``SCOUT_DEC`` decode
+  steps teacher-forced on the one-card run's tokens, held to it as
+  above, with the attention split over ``model`` and again under
+  ``attn_tp=False`` (the attention weights replicated: the twin's lever
+  for heads ``model`` does not divide). Per variant each decode step's
+  wall and CUDA-event ms and NCCL calls and bytes by kind, rank 0's
+  busy ms in one more decode step under ``torch.profiler`` and its NCCL
+  part; the launcher then runs the dry-run of each variant's decode
+  cell, whose calls and bytes must equal every measured step's;
 * with 4 ranks, mixtral-8x7b whole (32 layers, 46.7 B params, bf16; no
   one card holds it) on ``(2, 2)``: the params drawn sharded, 8 prompts of
   512 tokens prefilled, then 32 greedy decode steps. Per rank the memory
@@ -65,6 +84,17 @@ TOL = 1e-5                  # logits and cache, of each tensor's scale
 MARGIN = 1e-4               # tokens compared where the top-2 margin exceeds
 MESHES = {4: [(2, 2), (4, 1), (1, 4), (2, 2, 1), (2, 1, 2)],
           2: [(2, 1), (1, 2)], 1: [(1, 1), (1, 1, 1)]}
+# four ranks: query heads model does not divide, REDUCED width, float32
+# (arch, (n_heads, n_kv_heads), mesh, ring slots past CUT_S + CUT_DEC)
+PARTIAL = [("llama4-scout-17b-a16e", (10, 2), (1, 4), 0),
+           ("llama4-scout-17b-a16e", (10, 2), (1, 4), 1),
+           ("llama4-scout-17b-a16e", (5, 1), (2, 2), 0),
+           ("granite-3-2b", (10, 2), (1, 4), 0),
+           ("granite-3-2b", (10, 5), (1, 4), 0),
+           ("granite-3-2b", (10, 5), (1, 4), 1)]
+SCOUT = "llama4-scout-17b-a16e"       # at its own widths, on (1, 4)
+SCOUT_HEADS, SCOUT_MESH = (10, 2), (1, 4)
+SCOUT_B, SCOUT_S, SCOUT_DEC = 4, 512, 16
 TIMEOUT_S = 1000
 
 
@@ -86,11 +116,11 @@ def scaled_err(a, b) -> float:
                                    + 1e-300)).max())
 
 
-def one_card(torch, h, shape, dev, mesh_shape, batch):
+def one_card(torch, h, shape, dev, mesh_shape, batch, n_dec=CUT_DEC):
     """The reference on rank 0: the one-card logical mesh of the same
-    shape, prefill then ``CUT_DEC`` greedy decode steps through the
+    shape, prefill then ``n_dec`` greedy decode steps through the
     model's own decode step (its logits give the margins). Returns the
-    prefill's logits, the greedy tokens (B, CUT_DEC), their margins, the
+    prefill's logits, the greedy tokens (B, n_dec + 1), their margins, the
     final cache and the largest difference of a prefill of the batch's
     first half from the whole batch's logits (dense archs: with MoE the
     half batch routes under another capacity)."""
@@ -101,23 +131,23 @@ def one_card(torch, h, shape, dev, mesh_shape, batch):
 
     lmesh = logical_mesh(mesh_shape, dev)
     params = h.model.init(prng.key(1), device=dev)
+    B, S = batch["tokens"].shape
     logits, cache = h.make_prefill_step(
-        Shape("serve", shape.seq_len, CUT_B, "prefill"), lmesh)(params,
-                                                                 batch)
+        Shape("serve", shape.seq_len, B, "prefill"), lmesh)(params, batch)
     spread = None   # MoE capacity counts the whole batch: no spread
     if h.cfg.moe is None:
         half, _ = h.make_prefill_step(
-            Shape("serve", shape.seq_len, CUT_B // 2, "prefill"), lmesh)(
-                params, {k: v[:CUT_B // 2] for k, v in batch.items()})
-        spread = float((half - logits[:CUT_B // 2]).abs().max())
+            Shape("serve", shape.seq_len, B // 2, "prefill"), lmesh)(
+                params, {k: v[:B // 2] for k, v in batch.items()})
+        spread = float((half - logits[:B // 2]).abs().max())
         del half
     toks, margs = [], []
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     with torch.inference_mode(), use_mesh(lmesh):
-        for i in range(CUT_DEC):
+        for i in range(n_dec):
             toks.append(tok)
             step_logits, cache = h.model.decode_step(
-                params, {"tokens": tok[:, None]}, CUT_S + i, cache)
+                params, {"tokens": tok[:, None]}, S + i, cache)
             margs.append(margins(torch, step_logits[:, -1]))
             tok = torch.argmax(step_logits[:, -1], dim=-1).to(torch.int32)
     toks.append(tok)
@@ -126,37 +156,56 @@ def one_card(torch, h, shape, dev, mesh_shape, batch):
             spread)
 
 
-def f32_case(np, torch, groups, arch, what) -> dict:
-    """One float32 cut's prefill and decode steps on the rank mesh,
-    against the one-card logical mesh of the same shape on rank 0."""
+def cut_harness(torch, arch, heads=None, width="CONFIG", **kw):
+    """The harness of a float32 cut: ``arch``'s CONFIG at ``CUT_LAYERS``
+    layers, or its REDUCED config; ``heads`` sets ``(n_heads,
+    n_kv_heads)``."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import LMHarness
+
+    change = dict(n_layers=CUT_LAYERS) if width == "CONFIG" else {}
+    if heads is not None:
+        change.update(n_heads=heads[0], n_kv_heads=heads[1])
+    cfg = dataclasses.replace(getattr(configs.get_arch(arch), width),
+                              dtype=torch.float32, **change)
+    return LMHarness(arch, cfg=cfg, **kw)
+
+
+def f32_case(np, torch, groups, h, what, *, B=CUT_B, S=CUT_S,
+             n_dec=CUT_DEC, slots=0, ref=None, timed=False):
+    """One float32 cut's prefill and ``n_dec`` decode steps on the rank
+    mesh (a ring of ``S + n_dec + slots`` slots), against the one-card
+    logical mesh of the same shape on rank 0 (``ref``: a reference of the
+    same params, shape and tokens made before, else made here). With
+    ``timed`` each decode step's wall and CUDA-event ms and NCCL calls
+    and bytes, and rank 0's busy ms in one more step under
+    ``torch.profiler``. Returns the record and, on rank 0, the
+    reference. ``seconds``: the case's time on this rank (rank 0's with
+    the reference)."""
     import torch.distributed as dist
 
-    from repro_torch import configs
     from repro_torch.configs.shapes import Shape
     from repro_torch.core import prng
     from repro_torch.data import lm
     from repro_torch.distributed import partition as part
     from repro_torch.distributed import process_group as pg
     from repro_torch.launch.mesh import make_rank_mesh
-    from repro_torch.launch.steps import LMHarness
+    from repro_torch.tree import leaves
 
+    t_case = time.perf_counter()
     mesh = make_rank_mesh(groups)
     dev = groups.device
-    cfg = dataclasses.replace(configs.get_arch(arch).CONFIG,
-                              dtype=torch.float32, n_layers=CUT_LAYERS)
-    h = LMHarness(arch, cfg=cfg)
-    T = CUT_S + CUT_DEC
-    shape = Shape("serve", T, CUT_B, "decode")
-    toks = torch.from_numpy(lm.TokenStream(cfg.vocab_size, seed=1).sample(
-        CUT_B, CUT_S, 0).astype(np.int32))
+    T = S + n_dec + slots
+    shape = Shape("serve", T, B, "decode")
+    toks = torch.from_numpy(lm.TokenStream(h.cfg.vocab_size, seed=1).sample(
+        B, S, 0).astype(np.int32))
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
     # rank 0's one-card run first; its greedy tokens go to every rank
-    forced = torch.zeros((CUT_B, CUT_DEC + 1), dtype=torch.int32,
-                         device=dev)
-    ref = None
+    forced = torch.zeros((B, n_dec + 1), dtype=torch.int32, device=dev)
     if groups.rank == 0:
-        ref = one_card(torch, h, shape, dev, groups.sizes,
-                       {k: v.to(dev) for k, v in batch.items()})
+        if ref is None:
+            ref = one_card(torch, h, shape, dev, groups.sizes,
+                           {k: v.to(dev) for k, v in batch.items()}, n_dec)
         forced.copy_(ref[1])
     dist.broadcast(forced, src=0)
     torch.cuda.empty_cache()
@@ -169,29 +218,63 @@ def f32_case(np, torch, groups, arch, what) -> dict:
     pg.reset_bytes()
     t0 = time.perf_counter()
     logits, cache = h.make_prefill_step(
-        Shape("serve", T, CUT_B, "prefill"), mesh)(params, batch)
+        Shape("serve", T, B, "prefill"), mesh)(params, batch)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_calls = dict(pg.CALLS)
     decode = h.make_decode_step(shape, mesh)
-    got, walls = [], []
-    for i in range(CUT_DEC):
+    got, walls, steps = [], [], []
+    for i in range(n_dec):
+        pg.reset_bytes()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        start.record()
         tok, cache = decode(params, cache, {"tokens": forced[:, i:i + 1]},
-                            CUT_S + i)
+                            S + i)
+        end.record()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+        steps.append({"event_ms": start.elapsed_time(end),
+                      "nccl_calls": dict(pg.CALLS),
+                      "nccl_bytes": dict(pg.BYTES)})
         got.append(tok[:, 0])
     got = torch.stack(got, 1)
-    full = pg.gather_tree(cache, c_shard, groups)
-    del params, cache
-    torch.cuda.empty_cache()
-    out = {"what": what, "arch": arch, "mesh": list(groups.sizes),
+    out = {"what": what, "arch": h.arch_id, "mesh": list(groups.sizes),
            "layout": part.kv_layout(part.layer_shardings(c_shard)["k"]),
            "prefill_ms": prefill_ms, "decode_ms": walls,
            "prefill_calls": prefill_calls}
+    if timed:
+        # one more decode step under torch.profiler: the card's busy
+        # time, and the share of it in NCCL's kernels
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            decode(params, cache, {"tokens": forced[:, n_dec - 1:n_dec]},
+                   S + n_dec - 1)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        events_ms = [st["event_ms"] for st in steps]
+        out.update(
+            steps=steps, batch=B, prompt=S, attn_tp=h.attn_tp,
+            decode_wall_ms_p50=percentile(walls, 0.5),
+            decode_wall_ms_p95=percentile(walls, 0.95),
+            decode_event_ms_p50=percentile(events_ms, 0.5),
+            decode_event_ms_p95=percentile(events_ms, 0.95),
+            busy_ms=sum(getattr(e, "device_time_total", 0)
+                        for e in events) / 1e3,
+            nccl_busy_ms=sum(getattr(e, "device_time_total", 0)
+                             for e in events
+                             if "nccl" in e.key.lower()) / 1e3,
+            params=sum(t.numel() for t in leaves(h.param_shapes())),
+            param_shard_bytes=sum(t.numel() * t.element_size()
+                                  for t in leaves(params)))
+    full = pg.gather_tree(cache, c_shard, groups)
+    del params, cache
+    torch.cuda.empty_cache()
     if groups.rank != 0:
-        return out
+        out["seconds"] = time.perf_counter() - t_case
+        return out, None
     r_logits, r_toks, r_marg, r_cache, spread = ref
     want = r_toks[:, 1:]
     sure = r_marg > MARGIN
@@ -219,8 +302,28 @@ def f32_case(np, torch, groups, arch, what) -> dict:
         tokens_ok=bool(torch.equal(got[sure], want[sure])),
         tokens_equal_all=bool(torch.equal(got, want)),
         min_margin=float(r_marg.min()),
-        bit_equal=bool(bit and torch.equal(got, want)))
-    del ref, full
+        bit_equal=bool(bit and torch.equal(got, want)),
+        seconds=time.perf_counter() - t_case)
+    del full
+    torch.cuda.empty_cache()
+    return out, ref
+
+
+def scout_cases(np, torch, groups) -> list:
+    """llama4-scout at its own widths, 10 query and 2 K/V heads, on the
+    ``(1, 4)`` rank mesh: the attention split over ``model`` (2.5 query
+    heads a rank, 3 computed), then under ``attn_tp=False``, both held
+    to one one-card reference."""
+    ref, out = None, []
+    for attn_tp in (True, False):
+        h = cut_harness(torch, SCOUT, SCOUT_HEADS, attn_tp=attn_tp)
+        rec, ref = f32_case(
+            np, torch, groups, h, f"{SCOUT} f32 at its widths, "
+            f"{CUT_LAYERS} layers, 10 query / 2 K/V heads, attn_tp "
+            f"{attn_tp}", B=SCOUT_B, S=SCOUT_S, n_dec=SCOUT_DEC, ref=ref,
+            timed=True)
+        out.append(rec)
+    del ref
     torch.cuda.empty_cache()
     return out
 
@@ -328,36 +431,60 @@ def whole_case(np, torch, groups) -> dict:
             "tokens": out_toks[:2].tolist(), **gathered}
 
 
-def dryrun_whole(whole) -> dict:
-    """The dry-run of ``whole_case``'s decode cell on ``(2, 2)``: its
+def dryrun_decode(arch, shape, mesh, steps, *, cfg=None,
+                  variant=None) -> dict:
+    """The dry-run of a decode cell (``repro_torch.launch.dryrun``: rank
+    0's step on fake CUDA tensors under the fake process group): its
     collective calls and bytes by kind must equal each measured decode
-    step's; its peak goes beside the ranks' serving peaks."""
+    step's (``steps``)."""
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.shapes import Shape
     from repro_torch.launch import dryrun
 
     t0 = time.perf_counter()
-    rec = dryrun.run_cell(
-        WHOLE_ARCH, Shape("serve_whole", WHOLE_S + WHOLE_DEC, WHOLE_B,
-                          "decode"), mesh=(2, 2), device="cuda",
-        verbose=False)
+    rec = dryrun.run_cell(arch, shape, mesh=mesh, cfg=cfg, variant=variant,
+                          device="cuda", verbose=False)
     if rec["status"] != "ok":
-        raise SystemExit(f"the dry-run of the whole decode cell: {rec}")
+        raise SystemExit(f"the dry-run of the {arch} decode cell: {rec}")
     col = rec["collectives"]
     calls = {k.replace("-", "_"): v for k, v in col["counts"].items()}
     nbytes = {k.replace("-", "_"): v
               for k, v in col["buffer_bytes_by_kind"].items()}
-    for i, step in enumerate(whole["steps"]):
+    for i, step in enumerate(steps):
         if step["nccl_calls"] != calls or step["nccl_bytes"] != nbytes:
             raise SystemExit(
-                f"decode step {i}: the ranks counted {step['nccl_calls']} "
-                f"calls, {step['nccl_bytes']} bytes; the dry-run {calls}, "
-                f"{nbytes}")
+                f"{arch} {variant or ''} decode step {i}: the ranks counted "
+                f"{step['nccl_calls']} calls, {step['nccl_bytes']} bytes; "
+                f"the dry-run {calls}, {nbytes}")
     return {"calls": calls, "bytes": nbytes, "memory": rec["memory"],
             "cost": rec["cost"], "roofline": rec["roofline"],
-            "peak_over_measured": [rec["memory"]["total_bytes"] / b
-                                   for b in whole["peak_bytes"]],
             "seconds": time.perf_counter() - t0}
+
+
+def dryrun_whole(whole) -> dict:
+    """The dry-run of ``whole_case``'s decode cell on ``(2, 2)``, held to
+    every measured decode step; its peak goes beside the ranks' serving
+    peaks."""
+    from repro_torch.configs.shapes import Shape
+
+    d = dryrun_decode(WHOLE_ARCH, Shape(
+        "serve_whole", WHOLE_S + WHOLE_DEC, WHOLE_B, "decode"), (2, 2),
+        whole["steps"])
+    d["peak_over_measured"] = [d["memory"]["total_bytes"] / b
+                               for b in whole["peak_bytes"]]
+    return d
+
+
+def dryrun_scout(torch, scout) -> list:
+    """The dry-run of each of ``scout_cases``' decode cells (the split
+    attention and ``attn_tp=False``), held to its measured steps."""
+    from repro_torch.configs.shapes import Shape
+
+    cfg = cut_harness(torch, SCOUT, SCOUT_HEADS).cfg
+    return [dryrun_decode(
+        SCOUT, Shape("serve", SCOUT_S + SCOUT_DEC, SCOUT_B, "decode"),
+        SCOUT_MESH, rec["steps"], cfg=cfg,
+        variant=None if rec["attn_tp"] else "attn_tp=false")
+        for rec in scout]
 
 
 def rank_main(args) -> None:
@@ -379,7 +506,7 @@ def rank_main(args) -> None:
     for m in meshes[1:]:
         groups[m] = pg.mesh_groups(axis_names(m), m, dev,
                                    timeout_s=TIMEOUT_S)
-    cases = []
+    cases, scout = [], []
     t0 = time.perf_counter()
     try:
         for m in meshes:
@@ -388,14 +515,23 @@ def rank_main(args) -> None:
                     ("granite-20b", "granite-20b f32 2-layer cut (MQA)"),
                     ("mixtral-8x7b", "mixtral-8x7b f32 2-layer cut (MoE, "
                      "window 4096)")):
-                cases.append(f32_case(np, torch, groups[m], arch, what))
+                cases.append(f32_case(np, torch, groups[m],
+                                      cut_harness(torch, arch), what)[0])
+        for arch, (H, KV), m, slots in (PARTIAL if world == 4 else []):
+            cases.append(f32_case(
+                np, torch, groups[m],
+                cut_harness(torch, arch, (H, KV), width="REDUCED"),
+                f"{arch} f32 REDUCED, {H} query / {KV} K/V heads",
+                slots=slots)[0])
+        if world == 4:
+            scout = scout_cases(np, torch, groups[SCOUT_MESH])
         whole = (whole_case(np, torch, groups[(2, 2)]) if world == 4
                  else None)
     finally:
         pg.shutdown()
     if args.rank == 0:
         res = {"world": world, "meshes": [list(m) for m in meshes],
-               "cases": cases, "whole": whole,
+               "cases": cases, "scout": scout, "whole": whole,
                "seconds": time.perf_counter() - t0,
                "card": torch.cuda.get_device_name(0)}
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -433,6 +569,7 @@ def main(argv=None) -> None:
     res = json.loads(pathlib.Path(args.out).read_text())
     if res["whole"] is not None:
         res["dryrun"] = dryrun_whole(res["whole"])
+        res["scout_dryrun"] = dryrun_scout(torch, res["scout"])
         pathlib.Path(args.out).write_text(json.dumps(res))
     print(json.dumps(res), flush=True)
 

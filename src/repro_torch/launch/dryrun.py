@@ -41,8 +41,9 @@ every rank's subgroup of every axis line, 320 of them on ``(2, 16,
 with ``n_micro`` 1. A cell's status is ``ok`` (it ran),
 ``skip`` (the twin's documented skip: long_500k on a full-attention
 arch), ``not_ported`` (the rank step raises ROADMAP item 12e-ii's
-refusal: the families other than dense GQA and MoE, heads the ``model``
-axis does not divide) or ``fail``
+refusal: the families other than dense GQA and MoE; query heads the
+``model`` axis does not divide run, llama4-scout's 40 on 16) or
+``fail``
 (anything else: a bug, and the run exits 1). Records append to the
 ``--out`` file, which ``repro_torch.benchmarks.roofline`` reads.
 """

@@ -33,8 +33,8 @@ A mesh runs in one of two ways:
     (the slots over ``model`` where they divide: decode context
     parallelism), for the dense GQA / MQA and MoE families, on a mesh
     with or without a ``pod`` axis (the batch over ``(pod, data)``, the
-    params replicated over ``pod``); the other families are item 12e-ii
-    and raise.
+    params replicated over ``pod``), whether or not ``model`` divides
+    the query heads; the other families are item 12e-ii and raise.
 
 A mesh over several distinct devices outside a process group raises: the
 twin's program has GSPMD's global semantics (MoE capacity over the whole
@@ -187,8 +187,9 @@ def refuse_ranks(mesh, what: str) -> None:
     """Raise for ``what`` (a step of a family, or a lever) on a rank mesh:
     ROADMAP item 12e-ii. The train, prefill and decode steps of the dense
     GQA / MQA and MoE families run across ranks, with or without a
-    ``pod`` axis; the other families' steps, ``moe_ep`` at prefill and
-    decode and the ``expert_parallel`` lever are refused by
+    ``pod`` axis, also where ``model`` does not divide the query heads
+    (llama4-scout's 40 on 16); the other families' steps, ``moe_ep`` at
+    prefill and decode and the ``expert_parallel`` lever are refused by
     :meth:`repro_torch.launch.steps.LMHarness._refuse_across_ranks`."""
     if mesh is not None and getattr(mesh, "is_ranks", False):
         raise NotImplementedError(

@@ -53,9 +53,11 @@ GQA / MQA and MoE, without ``moe_ep`` or the ``expert_parallel`` lever):
     (as the twin's input sharding splits it; else every rank holds every
     row);
   * the params are this rank's shards (gathered over ``data`` a layer at
-    a time, Megatron TP over ``model``), and so is the cache: each rank
-    allocates only its shard of every leaf of ``cache_partition``'s
-    layout (:func:`repro_torch.distributed.partition.cache_shards`), the
+    a time, Megatron TP over ``model``: a rank computes the query heads
+    its ``wq`` columns touch, so ``model`` need not divide the heads),
+    and so is the cache: each rank allocates only its shard of every
+    leaf of ``cache_partition``'s layout
+    (:func:`repro_torch.distributed.partition.cache_shards`), the
     slots over ``model`` where they divide (decode context parallelism),
     else the K/V heads, else replicated over ``model``;
   * like the twin's replicated outputs, every rank returns the whole
@@ -65,7 +67,9 @@ GQA / MQA and MoE, without ``moe_ep`` or the ``expert_parallel`` lever):
 A mesh may have a ``pod`` axis (``("pod", "data", "model")``): it carries
 only the batch, as the twin's rules put only the batch on it. The train
 step of the families other than the dense GQA and MoE ones, and their
-prefill and decode, are ROADMAP item 12e-ii and raise.
+prefill and decode, are ROADMAP item 12e-ii and raise; query heads that
+``model`` does not divide (llama4-scout's 40 on 16 model ranks) run in
+all three steps (:func:`repro_torch.models.attention.gqa_forward_tp`).
 """
 
 from __future__ import annotations

@@ -30,6 +30,9 @@ partition`, where the twin shards the queries over ``model``.
 :func:`gqa_forward_tp` is the rank step's attention across ``model``
 ranks (Megatron tensor parallelism): ``wq`` and the K/V heads its query
 heads read column-parallel, ``wo`` row-parallel with one all-reduce.
+Where ``model`` does not divide the query heads (llama4-scout's 40 on
+16 ranks) a rank computes every head its ``wq`` columns touch and keeps
+its own columns of the output.
 With a cache shard it serves prefill and decode on the partitioner's
 layout of the ring; on slots split over ``model`` a decode step combines
 the ranks' partial softmaxes by their log-sum-exp (decode context
@@ -290,19 +293,23 @@ def gqa_forward(
 def _tp_heads(p, cfg: TransformerConfig, groups):
     """``(hl, lo, tp)``: the query heads ``lo .. lo + hl - 1`` this rank
     computes, and whether ``wq`` is split over ``model`` (else every
-    rank computes all of them). Raises for what the rank step does not
+    rank computes all of them). Split, rank ``c`` holds the ``C = H hd /
+    M`` columns ``c C .. (c+1) C - 1`` of ``wq``, and computes every head
+    they touch: ``M`` need not divide ``H`` (llama4-scout's 40 heads on
+    16 ranks: 2.5 a rank, 3 computed), and a head that straddles two
+    ranks is computed on both. Raises for what the rank step does not
     split (ROADMAP item 12e-ii)."""
     H, hd = cfg.n_heads, cfg.resolved_head_dim
     if p["wq"].shape[1] == H * hd:
         return H, 0, False
-    M = groups.size("model")
-    if H % M or "bq" in p or cfg.qk_norm or cfg.mrope:
-        raise NotImplementedError(
-            f"attention of {H} heads over {M} model ranks (or with biases, "
-            f"q/k norms or M-RoPE) across ranks: ROADMAP Queue 1 item "
-            f"12e-ii")
-    hl = H // M
-    return hl, groups.index("model") * hl, True
+    what = ("biases" if "bq" in p else "q/k norms" if cfg.qk_norm
+            else "M-RoPE" if cfg.mrope else None)
+    if what:
+        raise NotImplementedError(f"attention with {what} across ranks: "
+                                  f"ROADMAP Queue 1 item 12e-ii")
+    C, c = p["wq"].shape[1], groups.index("model")
+    lo = c * C // hd
+    return -(-(c + 1) * C // hd) - lo, lo, True
 
 
 def _kv_slice(lo: int, hl: int, g: int) -> tuple[int, int]:
@@ -311,14 +318,73 @@ def _kv_slice(lo: int, hl: int, g: int) -> tuple[int, int]:
     return lo // g, (lo + hl - 1) // g + 1
 
 
+def _q_heads(w, x, cfg: TransformerConfig, groups, lo: int, hl: int):
+    """``x @ wq`` over query heads ``lo .. lo + hl - 1``, ``(B, S, hl,
+    hd)``, from ``w``, this rank's ``wq`` (whole, or its column shard).
+    A shard that is not those heads' columns is completed over
+    ``model``: a decode step (S == 1) gathers the ranks' products ``x @
+    w``, a few rows, and a longer call ``w`` itself, whose gather's
+    backward sums the ranks' gradients of a column."""
+    hd = cfg.resolved_head_dim
+    C, c = w.shape[1], groups.index("model")
+    cols = slice(lo * hd, (lo + hl) * hd)
+    if C == cfg.n_heads * hd:
+        y = x @ w[:, cols]
+    elif (c * C, C) == (lo * hd, hl * hd):
+        y = x @ w
+    elif x.shape[1] == 1:
+        y = pg.gather(x @ w, x.ndim - 1, groups, "model")[..., cols]
+    else:
+        y = x @ pg.gather(w, 1, groups, "model")[:, cols]
+    return _split_heads(y, hl, hd)
+
+
+def _sdpa_heads(q, k, v, pos_q, pos_k, *, lo: int, g: int, window,
+                scores_bf16: bool):
+    """Causal :func:`sdpa` of query heads ``lo .. lo + hl - 1`` (``q``
+    (B, S, hl, hd)) over the K/V heads they read (``k`` / ``v`` (B, T,
+    KV_l, hd) from K/V head ``lo // g``; head ``h`` reads ``h // g``).
+    One call where every K/V head serves as many of them (a uniform
+    group), else one a K/V head: a rank's heads may read their K/V heads
+    unevenly (heads 0-2 of ``g`` 2: two read head 0, one head 1)."""
+    hl = q.shape[2]
+    cuts = [lo] + list(range((lo // g + 1) * g, lo + hl, g)) + [lo + hl]
+    runs = list(zip(cuts, cuts[1:]))
+    sizes = {b - a for a, b in runs}
+    kw = dict(causal=True, window=window, scores_bf16=scores_bf16)
+    if len(sizes) == 1:
+        return sdpa(q, k, v, pos_q, pos_k, q_group=sizes.pop(), **kw)
+    return torch.cat([
+        sdpa(q[:, :, a - lo:b - lo], k[:, :, j:j + 1], v[:, :, j:j + 1],
+             pos_q, pos_k, q_group=b - a, **kw)
+        for j, (a, b) in enumerate(runs)], dim=2)
+
+
+def _own_columns(out, w, groups, lo: int, hd: int):
+    """The columns of ``wq``'s shard ``w`` (this rank's ``C``, ``c C ..
+    (c+1) C - 1``) of the attention output ``out`` (B, S, hl, hd) of
+    query heads ``lo ..``: the rows of this rank's ``wo``. The slice's
+    zero fill and the gather of ``wq`` (or of its product) over
+    ``model`` sum the two ranks' shares of a straddling head's
+    gradient."""
+    B, S = out.shape[0], out.shape[1]
+    C = w.shape[1]
+    first = groups.index("model") * C - lo * hd
+    return out.reshape(B, S, -1)[:, :, first:first + C]
+
+
 def gqa_forward_tp(p: dict, x, *, cfg: TransformerConfig, positions,
                    window: int | None, groups, cache: dict | None = None,
                    write_pos: int | None = None, layout: str | None = None):
     """Causal self-attention across the ``model`` ranks of ``groups``:
     ``p`` holds this rank's ``model`` shards (``data`` already gathered).
-    Rank ``c`` of ``M`` runs :func:`gqa_forward` on query heads ``c H/M
-    .. (c+1) H/M - 1`` and the K/V heads they read; its ``wo`` rows give
-    a partial output, summed by one all-reduce
+    Rank ``c`` of ``M`` holds ``wq``'s columns ``c C .. (c+1) C - 1``
+    (``C = H hd / M``) and ``wo``'s rows of them; it computes the query
+    heads those columns touch (:func:`_tp_heads`: ``c H/M .. (c+1) H/M -
+    1`` where ``M`` divides ``H``; else a straddling head on both its
+    ranks, ``wq`` completed over ``model`` by :func:`_q_heads`) over the
+    K/V heads they read, and its own columns of the output meet its
+    ``wo`` rows: a partial output, summed by one all-reduce
     (:func:`repro_torch.distributed.process_group.reduce_out`). A K/V
     shard that is not whole heads (MQA, or fewer K/V heads than ranks) is
     gathered, and a replicated one sliced, the gradient summed over the
@@ -341,11 +407,6 @@ def gqa_forward_tp(p: dict, x, *, cfg: TransformerConfig, positions,
         return gqa_forward(p, x, cfg=cfg, positions=positions, window=window)
     M = groups.size("model")
     kv_lo, kv_hi = _kv_slice(lo, hl, g)
-    kvl = kv_hi - kv_lo
-    if hl % kvl:
-        raise NotImplementedError(
-            f"{hl} query heads a rank over {kvl} K/V heads: ROADMAP Queue 1 "
-            f"item 12e-ii")
 
     def kv_weight(w):
         if KV % M == 0 and w.shape[1] == (KV // M) * hd:
@@ -356,12 +417,18 @@ def gqa_forward_tp(p: dict, x, *, cfg: TransformerConfig, positions,
             w = pg.gather(w, 1, groups, "model")
         return w[:, kv_lo * hd:kv_hi * hd]
 
-    local = dict(p, wk=kv_weight(p["wk"]), wv=kv_weight(p["wv"]))
-    out, _ = gqa_forward(
-        local, pg.copy_in(x, groups), positions=positions, window=window,
-        cfg=dataclasses.replace(cfg, n_heads=hl, n_kv_heads=kvl,
-                                head_dim=hd))
-    return pg.reduce_out(out, groups), None
+    x = pg.copy_in(x, groups)
+    q = _q_heads(p["wq"], x, cfg, groups, lo, hl)
+    k = _split_heads(x @ kv_weight(p["wk"]), kv_hi - kv_lo, hd)
+    v = _split_heads(x @ kv_weight(p["wv"]), kv_hi - kv_lo, hd)
+    cos, sin = make_rope(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = _sdpa_heads(q, k.to(q.dtype), v.to(q.dtype), positions, positions,
+                      lo=lo, g=g, window=window,
+                      scores_bf16=cfg.attn_scores_bf16)
+    out = _own_columns(out, p["wq"], groups, lo, hd) @ p["wo"]
+    return pg.reduce_out(out.to(x.dtype), groups), None
 
 
 def _kv_heads(w, x, cfg: TransformerConfig, groups):
@@ -453,8 +520,9 @@ def _gqa_cached_tp(p, x, *, cfg: TransformerConfig, positions, window,
     partitioner's layout of the ring:
 
       * ``"heads"``: the shard holds this rank's K/V heads, the ones its
-        query heads read, so the plain tensor-parallel path runs
-        :func:`gqa_forward` with its cache;
+        query heads read (the layout needs ``M | KV`` and so ``M | H``),
+        so the plain tensor-parallel path runs :func:`gqa_forward` with
+        its cache;
       * ``"replicated"``: every rank holds every K/V head of every slot;
         it writes them all and attends with its query heads;
       * ``"seq"``: the shard holds slots ``c T/M .. (c+1) T/M - 1`` of
@@ -463,16 +531,18 @@ def _gqa_cached_tp(p, x, *, cfg: TransformerConfig, positions, window,
         ``T`` positions (every K/V head of them: the heads the ranks
         computed gathered, or all of them computed from the gathered
         weight). A decode step writes the token into slot ``pos % T`` on
-        the rank that holds it, gathers the query heads, scores every
-        head over each rank's slots and combines them over ``model``
-        (:func:`_cp_decode`); this rank's heads of the result meet its
-        ``wo`` rows.
+        the rank that holds it, gathers the ranks' columns of ``x @ wq``
+        (every query head), scores every head over each rank's slots and
+        combines them over ``model`` (:func:`_cp_decode`).
 
-    ``wo`` stays row-parallel: the partial outputs are summed by one
-    all-reduce. Unsharded weights compute every head on every rank, and
-    then only a ``"seq"`` ring needs the exchange."""
+    The query heads are those :func:`_tp_heads` gives (a head ``model``
+    cuts is computed on both of its ranks); this rank's columns of the
+    result meet its ``wo`` rows, which stay row-parallel: the partial
+    outputs are summed by one all-reduce. Unsharded weights compute every
+    head on every rank, and then only a ``"seq"`` ring needs the
+    exchange."""
     hd = cfg.resolved_head_dim
-    H, KV, g = cfg.n_heads, cfg.n_kv_heads, cfg.q_group
+    H, g = cfg.n_heads, cfg.q_group
     B, S = x.shape[0], x.shape[1]
     M, c = groups.size("model"), groups.index("model")
     hl, lo, tp = _tp_heads(p, cfg, groups)
@@ -486,12 +556,9 @@ def _gqa_cached_tp(p, x, *, cfg: TransformerConfig, positions, window,
                                window=window, cache=cache,
                                write_pos=write_pos)
         return (pg.reduce_out(out, groups) if tp else out), new
-    if hl % (kv_hi - kv_lo):
-        raise NotImplementedError(
-            f"{hl} query heads a rank over {kv_hi - kv_lo} K/V heads: "
-            f"ROADMAP Queue 1 item 12e-ii")
-    gl = hl // (kv_hi - kv_lo)     # this rank's query heads a K/V head
-    q = _split_heads(x @ p["wq"], hl, hd)
+    every = S == 1 and layout == "seq"     # _cp_decode scores every head
+    q_lo = 0 if every else lo              # the first head of q
+    q = _q_heads(p["wq"], x, cfg, groups, q_lo, H if every else hl)
     k = _kv_heads(p["wk"], x, cfg, groups)
     v = _kv_heads(p["wv"], x, cfg, groups)
     cos, sin = make_rope(positions, hd, cfg.rope_theta)
@@ -500,24 +567,22 @@ def _gqa_cached_tp(p, x, *, cfg: TransformerConfig, positions, window,
     Tl = cache["k"].shape[1]
     first, total = (c * Tl, M * Tl) if layout == "seq" else (0, Tl)
     new = _ring_write(cache, k, v, write_pos, first=first, total=total)
-    scores_bf16 = cfg.attn_scores_bf16
+    heads = dict(lo=lo, g=g, window=window, scores_bf16=cfg.attn_scores_bf16)
     if S > 1:   # prefill: this rank's heads over the in-call K/V
-        out = sdpa(q, k[:, :, kv_lo:kv_hi].to(q.dtype),
-                   v[:, :, kv_lo:kv_hi].to(q.dtype), positions, positions,
-                   causal=True, window=window, q_group=gl,
-                   scores_bf16=scores_bf16)
-    elif layout == "seq":
-        q_all = pg.gather(q, 2, groups, "model") if tp else q
+        out = _sdpa_heads(q, k[:, :, kv_lo:kv_hi].to(q.dtype),
+                          v[:, :, kv_lo:kv_hi].to(q.dtype), positions,
+                          positions, **heads)
+    elif every:
         out = _cp_decode(
-            q_all, new["k"].to(q.dtype), new["v"].to(q.dtype), positions,
+            q, new["k"].to(q.dtype), new["v"].to(q.dtype), positions,
             new["slot_pos"][None].expand(B, Tl), window=window, q_group=g,
-            scores_bf16=scores_bf16, groups=groups)[:, :, lo:lo + hl]
+            scores_bf16=cfg.attn_scores_bf16, groups=groups)
     else:       # replicated ring: this rank's heads over every slot
-        out = sdpa(q, new["k"][:, :, kv_lo:kv_hi].to(q.dtype),
-                   new["v"][:, :, kv_lo:kv_hi].to(q.dtype), positions,
-                   new["slot_pos"][None].expand(B, Tl), causal=True,
-                   window=window, q_group=gl, scores_bf16=scores_bf16)
-    out = out.reshape(B, S, hl * hd) @ p["wo"]
+        out = _sdpa_heads(q, new["k"][:, :, kv_lo:kv_hi].to(q.dtype),
+                          new["v"][:, :, kv_lo:kv_hi].to(q.dtype), positions,
+                          new["slot_pos"][None].expand(B, Tl), **heads)
+    out = (_own_columns(out, p["wq"], groups, q_lo, hd) if tp
+           else out.reshape(B, S, H * hd)) @ p["wo"]
     return (pg.reduce_out(out, groups) if tp else out).to(x.dtype), new
 
 

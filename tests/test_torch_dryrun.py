@@ -20,17 +20,19 @@ a torch built without CUDA):
   512, ``micro_rows`` 2: the calls and bytes four H100 ranks measured
   (563 / 282 / 5 calls; 10.335 GB / 5.268 GB / 0.66 MB, the exact
   integers pinned);
-* every cell of ``--arch all --shape all --mesh both`` but the six
+* every cell of ``--arch all --shape all --mesh both`` but the eight
   ``train_4k`` cells that run never ``fail`` (one case a cell): the
-  prefill, decode and long cells of granite-3-2b, granite-20b and
-  mixtral-8x7b on ``(16, 16)`` and ``(2, 16, 16)`` are ``ok``, the rest
-  ``skip`` or ``not_ported`` (ROADMAP item 12e-ii): 20 ok, 12 skip, 48
+  prefill, decode and long cells of granite-3-2b, granite-20b,
+  mixtral-8x7b and llama4-scout (its 40 query heads split over 16 model
+  ranks) on ``(16, 16)`` and ``(2, 16, 16)`` are ``ok``, the rest
+  ``skip`` or ``not_ported`` (ROADMAP item 12e-ii): 26 ok, 12 skip, 42
   not_ported and 0 fail in all. The serving cells that run go in a
   subprocess an arch and a mesh, beside the others.
 
 The default ``micro_rows`` (16 microbatches, ~8 min on the CPU) is
-marked ``slow``, as the twin marks its own cells; granite-20b's and
-mixtral-8x7b's ``train_4k`` cells run in the CLI's run alone.
+marked ``slow``, as the twin marks its own cells; granite-20b's,
+mixtral-8x7b's and llama4-scout's ``train_4k`` cells run in the CLI's
+run alone.
 """
 
 import json
@@ -47,8 +49,9 @@ from repro_torch.configs.shapes import SHAPES  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 900
-RUNS_OK = {"granite-3-2b", "granite-20b", "mixtral-8x7b"}
-# every cell of --arch all --shape all --mesh both but the six train_4k
+RUNS_OK = {"granite-3-2b", "granite-20b", "mixtral-8x7b",
+           "llama4-scout-17b-a16e"}
+# every cell of --arch all --shape all --mesh both but the eight train_4k
 # cells that run (RUNS_OK's, on both meshes)
 OTHERS = [(arch, shape, multi) for arch in configs.list_archs()
           for shape in SHAPES for multi in (False, True)
@@ -261,11 +264,11 @@ def test_phase15_cell_counts_what_the_ranks_measured(runs):
 def test_no_cell_fails(runs, arch, shape, multi):
     """Every other cell of ``--arch all --shape all --mesh both``: the
     prefill, decode and long cells of the dense GQA / MQA and MoE archs
-    on ``(16, 16)`` and ``(2, 16, 16)`` run (``SERVE_OK``: 14, with the
-    six train cells 20 ok), long contexts on a full-attention arch skip
-    with the twin's reason (12), the rest name item 12e-ii (48: the
-    families the rank steps do not run, on either mesh, and
-    llama4-scout's 40 heads over 16 model ranks, on either mesh)."""
+    on ``(16, 16)`` and ``(2, 16, 16)`` run (``SERVE_OK``: 18, llama4-
+    scout's with 40 query heads over 16 model ranks among them; with the
+    eight train cells 26 ok), long contexts on a full-attention arch
+    skip with the twin's reason (12), the rest name item 12e-ii (42: the
+    families the rank steps do not run, on either mesh)."""
     r = runs["others"][f"{arch}/{shape}/{multi}"]
     assert r["mesh"] == ("multi_pod_2x16x16" if multi
                          else "single_pod_16x16")
@@ -282,14 +285,11 @@ def test_no_cell_fails(runs, arch, shape, multi):
     assert "item 12e-ii" in r["reason"]
     assert arch not in RUNS_OK
     assert "pod" not in r["reason"]
-    if arch == "llama4-scout-17b-a16e":
-        assert "40 heads over 16 model ranks" in r["reason"]
-    else:
-        assert f"the {kind} step of " in r["reason"]
+    assert f"the {kind} step of " in r["reason"]
 
 
 def test_cell_statuses_add_up():
-    """The 80 cells: 20 ok, 12 skip, 48 not_ported (as pinned above): a
+    """The 80 cells: 26 ok, 12 skip, 42 not_ported (as pinned above): a
     mesh with a pod axis runs the dense and MoE families' cells as the
     ``(16, 16)`` mesh does, and refuses the others' as it does."""
     skip = [c for c in OTHERS if c[1] == "long_500k"
@@ -297,7 +297,7 @@ def test_cell_statuses_add_up():
     train = 2 * len(RUNS_OK)
     assert len(OTHERS) + train == 80
     assert (train + len(SERVE_OK), len(skip),
-            len(OTHERS) - len(SERVE_OK) - len(skip)) == (20, 12, 48)
+            len(OTHERS) - len(SERVE_OK) - len(skip)) == (26, 12, 42)
     for multi in (False, True):
         assert {(a, s) for a, s, m in SERVE_OK if m == multi} == {
             (a, s) for a, s, m in SERVE_OK if m != multi}

@@ -21,7 +21,12 @@ two runs side by side, each with a timeout:
   shapes and collective counts.
 
 Cases: granite-3-2b, and mixtral-8x7b and llama4-scout with ``moe_ep``
-off and on, at capacity factor 0.5 so capacity drops pairs. Each is held
+off and on, at capacity factor 0.5 so capacity drops pairs; and head
+counts ``model`` does not divide (``"<arch>@HxKV"``, :data:`PARTIAL`):
+llama4-scout at 10 query and 2 K/V heads on 4 model ranks and at 5 and 1
+on 2, 2.5 query heads and half a K/V head a rank as its 40 and 8 on 16,
+and granite-3-2b at ``(10, 2)`` and ``(10, 5)`` on 4, where a rank's
+three heads read two K/V heads unevenly. Each is held
 to JAX and, separately, to the port's logical mesh (run here), at
 ``tests/test_torch_lm_mesh.py``'s tolerances: the loss to rtol 1e-5,
 ``grad_norm`` to 1e-4, ``m`` / ``v`` within ``grads_close``, the new
@@ -77,9 +82,18 @@ MESHES = [(2, 2), (4, 1), (1, 4)] + POD_MESHES
 # the local-shape cases: the test meshes and the production ones
 SHARD_MESHES = MESHES[:3] + [(16, 16)] + POD_MESHES + [(2, 16, 16)]
 ARCHS = ["granite-3-2b", "mixtral-8x7b", "llama4-scout-17b-a16e"]
+SCOUT = "llama4-scout-17b-a16e"
+# query heads model does not divide: "<arch>@HxKV" sets the head counts
+PARTIAL = [(SCOUT + "@10x2", False, (1, 4)), (SCOUT + "@5x1", False, (2, 2)),
+           (SCOUT + "@5x1", False, (2, 1, 2)), (SCOUT + "@5x1", True, (2, 2)),
+           ("granite-3-2b@10x2", False, (1, 4)),
+           ("granite-3-2b@10x5", False, (1, 4))]
 CASES = [(arch, ep, mesh) for mesh in MESHES for arch, ep in (
     ("granite-3-2b", False), ("mixtral-8x7b", False), ("mixtral-8x7b", True),
-    ("llama4-scout-17b-a16e", False), ("llama4-scout-17b-a16e", True))]
+    ("llama4-scout-17b-a16e", False), ("llama4-scout-17b-a16e", True))
+         ] + PARTIAL
+# every arch of a case, the head cuts included: the inputs' params
+INPUT_ARCHS = ARCHS + sorted({arch for arch, _, _ in PARTIAL})
 TIMEOUT = 600            # seconds a launch may take before it fails
 
 
@@ -91,6 +105,17 @@ def _names(mesh):
     """The axis names of a mesh shape: a leading ``pod`` axis on three."""
     return ("pod", "data", "model")[-len(mesh):]
 
+
+# the scripts' reading of a case's arch: its id and REDUCED config, with
+# the head counts of an "<id>@HxKV" cut
+_CUT = r"""
+def cut(arch, **change):
+    name, _, heads = arch.partition("@")
+    if heads:
+        change.update(zip(("n_heads", "n_kv_heads"),
+                          map(int, heads.split("x"))))
+    return name, dataclasses.replace(configs.get_arch(name).REDUCED, **change)
+"""
 
 # runs under JAX with 4 faked devices; prints OK at the end
 _JAX_SIDE = r"""
@@ -104,16 +129,17 @@ inp = dict(np.load(sys.argv[1]))
 B, S, CF = %(B)d, %(S)d, %(CF)r
 FAST_XLA = {"xla_backend_optimization_level": 0}
 out = {}
+%(CUT)s
+
 for arch, ep, shape in json.loads(sys.argv[3]):
     tag = f"{arch}/{ep}/" + "x".join(map(str, shape))
     mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(shape),
                              ("pod", "data", "model")[-len(shape):])
-    cfg = dataclasses.replace(configs.get_arch(arch).REDUCED,
-                              dtype=jnp.float32, moe_ep=ep)
+    name, cfg = cut(arch, dtype=jnp.float32, moe_ep=ep)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=CF))
-    h = LMHarness(arch, cfg=cfg)
+    h = LMHarness(name, cfg=cfg)
     like, tdef = jax.tree.flatten(h.param_shapes())
     params = jax.tree.unflatten(tdef, [jnp.asarray(inp[f"params/{arch}/{i}"])
                                        for i in range(len(like))])
@@ -162,7 +188,7 @@ def _recording(*a, **k):
 
 
 tsteps._accumulate = _recording
-
+%(CUT)s
 rank, init, inputs, outdir = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
                               sys.argv[4])
 B, S, CF = %(B)d, %(S)d, %(CF)r
@@ -181,12 +207,11 @@ for arch, ep, shape in json.loads(sys.argv[5]):
                                        shape, "cpu", timeout_s=%(TIMEOUT)d)
     g = groups[shape]
     mesh = make_rank_mesh(g)
-    cfg = dataclasses.replace(configs.get_arch(arch).REDUCED,
-                              dtype=torch.float32, moe_ep=ep)
+    name, cfg = cut(arch, dtype=torch.float32, moe_ep=ep)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=CF))
-    h = LMHarness(arch, cfg=cfg)
+    h = LMHarness(name, cfg=cfg)
     sh = Shape("ranks", S, B, "train")
     (p_shard, _, _), _, _ = h.shardings(sh, mesh, "train")
     like = h.param_shapes()
@@ -239,14 +264,15 @@ from repro_torch.launch import dryrun
 
 B, S, CF = %(B)d, %(S)d, %(CF)r
 out = {}
+%(CUT)s
+
 for arch, ep, shape in json.loads(sys.argv[1]):
-    cfg = dataclasses.replace(configs.get_arch(arch).REDUCED,
-                              dtype=torch.float32, moe_ep=ep)
+    name, cfg = cut(arch, dtype=torch.float32, moe_ep=ep)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=CF))
     out[f"{arch}/{ep}/" + "x".join(map(str, shape))] = dryrun.run_cell(
-        arch, Shape("ranks", S, B, "train"), mesh=tuple(shape), cfg=cfg,
+        name, Shape("ranks", S, B, "train"), mesh=tuple(shape), cfg=cfg,
         device="cpu", verbose=False)
 with open(sys.argv[2], "w") as f:
     json.dump(out, f)
@@ -255,7 +281,13 @@ print("OK")
 
 
 def _cfg(arch, **change):
-    cfg = dataclasses.replace(tconfigs.get_arch(arch).REDUCED,
+    """The REDUCED float32 config of a case's arch (``"<id>@HxKV"``: with
+    those head counts), capacity factor ``CF``."""
+    name, _, heads = arch.partition("@")
+    if heads:
+        change.update(zip(("n_heads", "n_kv_heads"),
+                          map(int, heads.split("x"))))
+    cfg = dataclasses.replace(tconfigs.get_arch(name).REDUCED,
                               dtype=torch.float32, **change)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -263,13 +295,16 @@ def _cfg(arch, **change):
     return cfg
 
 
+def _harness(arch, **change):
+    return LMHarness(arch.partition("@")[0], cfg=_cfg(arch, **change))
+
+
 def _params_np(arch, seed):
     """Every leaf random: norm scales 0.1 N(0, 1), the rest N(0, 1) over
     the square root of the fan-in (the second-to-last dim)."""
     rng = np.random.default_rng(seed)
     out = []
-    for path, t in flatten_with_paths(LMHarness(arch, cfg=_cfg(arch))
-                                      .param_shapes()):
+    for path, t in flatten_with_paths(_harness(arch).param_shapes()):
         shape = tuple(t.shape)
         if "norm" in "/".join(map(str, path)) or len(shape) < 2:
             out.append(rng.normal(0, 0.1, shape))
@@ -356,11 +391,11 @@ def runs(tmp_path_factory, launches):
     rng = np.random.default_rng(7)
     toks = rng.integers(1, 256, (B, S + 1)).astype(np.int32)
     arrays = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
-    for n, arch in enumerate(ARCHS):
+    for n, arch in enumerate(INPUT_ARCHS):
         for i, a in enumerate(_params_np(arch, 100 + n)):
             arrays[f"params/{arch}/{i}"] = a
     np.savez(inputs, **arrays)
-    subs = {"B": B, "S": S, "CF": CF, "TIMEOUT": TIMEOUT}
+    subs = {"B": B, "S": S, "CF": CF, "TIMEOUT": TIMEOUT, "CUT": _CUT}
     jax_env = _clean_env(
         XLA_FLAGS="--xla_force_host_platform_device_count=4")
     jax_procs = [subprocess.Popen(
@@ -421,7 +456,7 @@ def _check(got, want, tag, n):
 
 
 def _n_leaves(arch):
-    return len(leaves(LMHarness(arch, cfg=_cfg(arch)).param_shapes()))
+    return len(leaves(_harness(arch).param_shapes()))
 
 
 @pytest.mark.parametrize("arch,ep,mesh", CASES)
@@ -474,7 +509,7 @@ def test_ranks_match_the_logical_mesh(runs, drops, arch, ep, mesh):
     """4 gloo ranks == the port's one-process logical mesh of the same
     shape (``cpu``), whose MoE cases drop pairs."""
     tag = _tag(arch, ep, mesh)
-    h = LMHarness(arch, cfg=_cfg(arch, moe_ep=ep))
+    h = _harness(arch, moe_ep=ep)
     like = h.param_shapes()
     n = len(leaves(like))
     inp = runs["inputs"]
@@ -509,7 +544,7 @@ def test_no_rank_holds_a_full_sharded_leaf(runs, mesh):
         if m != mesh:
             continue
         tag = _tag(arch, ep, mesh)
-        h = LMHarness(arch, cfg=_cfg(arch, moe_ep=ep))
+        h = _harness(arch, moe_ep=ep)
         lm = tmesh.LMMesh(_names(mesh), mesh)
         flat = tmesh.LMMesh(("data", "model"), mesh[-2:])
         shard = leaves(tpart.params_partition(h.param_shapes(), lm,
@@ -541,7 +576,8 @@ def _abstract(shape):
 
 
 @pytest.mark.parametrize("mesh", SHARD_MESHES)
-@pytest.mark.parametrize("arch", ["granite-3-2b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "mixtral-8x7b",
+                                  "llama4-scout-17b-a16e"])
 def test_shard_shapes_match_jax(arch, mesh):
     """Every param and optimizer leaf's local shape == JAX's
     ``NamedSharding(mesh, spec).shard_shape`` at CONFIG width."""
@@ -753,6 +789,34 @@ def test_expert_parallel_lever_across_ranks_raises():
     for mesh in (_fake_rank_mesh(), _fake_pod_mesh()):
         with pytest.raises(NotImplementedError, match="item 12e-ii"):
             h.make_train_step(Shape("t", S, B, "train"), mesh)
+
+
+@pytest.mark.parametrize("cached", [False, True])
+@pytest.mark.parametrize("what", ["biases", "q/k norms"])
+def test_partial_heads_with_biases_or_qk_norms_raise(what, cached):
+    """Query heads ``model`` does not divide run across ranks (the cases
+    above), but a biased or q/k-normed attention on them (parts d and e
+    of item 12e-ii) still raises, naming the item, in the train step's
+    attention and in the cached one, before any collective."""
+    from repro_torch.core import prng
+    from repro_torch.models import attention as tattn
+
+    cfg = _cfg(SCOUT + "@10x2", qk_norm=what == "q/k norms")
+    p = tattn.init_gqa(prng.key(0), cfg, bias=what == "biases", device="cpu")
+    p = {k: v[:, 40:80] if k in ("wq", "wk", "wv") else v
+         for k, v in p.items()}   # model rank 1 of 4: 2.5 query heads
+    p["wo"] = p["wo"][40:80]
+    groups = pg.RankGroups(("data", "model"), (1, 4), 1,
+                           torch.device("cpu"), {})
+    x = torch.zeros((2, 4, cfg.d_model))
+    pos = torch.arange(4)[None].expand(2, 4)
+    kw = {}
+    if cached:
+        kw = dict(cache=tattn.init_gqa_cache(cfg, 2, 4, device="cpu"),
+                  write_pos=0, layout="replicated")
+    with pytest.raises(NotImplementedError, match=f"{what}.*item 12e-ii"):
+        tattn.gqa_forward_tp(p, x, cfg=cfg, positions=pos, window=None,
+                             groups=groups, **kw)
 
 
 ONE_RANK = [("granite-3-2b", False), ("mixtral-8x7b", True),

@@ -22,6 +22,15 @@ an ``.npz`` and starts three runs side by side, each with a timeout:
   (``repro_torch.launch.dryrun.run_cell``: rank 0's step on fake tensors
   under the fake process group).
 
+Query heads ``model`` does not divide (``"<arch>@HxKV"`` sets the head
+counts, :data:`PARTIAL`): llama4-scout at 10 query and 2 K/V heads on
+``(1, 4)`` and at 5 and 1 on ``(2, 2)`` (2.5 query heads and half a K/V
+head a rank, as its 40 and 8 on 16 model ranks), granite-3-2b at ``(10,
+2)`` and ``(10, 5)`` on ``(1, 4)`` (a rank's three heads read two K/V
+heads unevenly), on the two ring layouts they can meet (slots over
+``model``, and a ring of 17 slots replicated over it) and from an empty
+cache.
+
 A case prefills B 8 x S 16 and takes ``N_DEC`` teacher-forced decode
 steps (the cache is S long, so the ring wraps; mixtral's window of 8
 wraps it at prefill already). Three granite-3-2b cases have a cache of
@@ -68,6 +77,16 @@ POD_MESHES = [(2, 2, 1), (2, 1, 2)]
 MESHES = [(2, 2), (4, 1), (1, 4)] + POD_MESHES
 ARCHS = ["granite-3-2b", "granite-20b", "mixtral-8x7b",
          "llama4-scout-17b-a16e"]
+SCOUT = "llama4-scout-17b-a16e"
+# query heads model does not divide: "<arch>@HxKV" sets the head counts
+PARTIAL = [(SCOUT + "@10x2", (1, 4), S, True),
+           (SCOUT + "@5x1", (2, 2), S, True),
+           (SCOUT + "@10x2", (1, 4), S + 1, True),
+           (SCOUT + "@5x1", (2, 2), S, False),
+           ("granite-3-2b@10x2", (1, 4), S, True),
+           ("granite-3-2b@10x5", (1, 4), S, True),
+           ("granite-3-2b@10x5", (1, 4), S + 1, True),
+           ("granite-3-2b@10x5", (1, 4), S, False)]
 # (arch, mesh, cache length, prefill first); without a prefill the
 # decode steps start from an empty cache at position 0
 CASES = ([(arch, mesh, S, True) for mesh in MESHES for arch in ARCHS
@@ -77,7 +96,9 @@ CASES = ([(arch, mesh, S, True) for mesh in MESHES for arch in ARCHS
             ("granite-3-2b", (2, 1, 2), S + 1, True),
             ("granite-3-2b", (1, 4), S, False),
             ("mixtral-8x7b", (2, 2), S, False),
-            ("mixtral-8x7b", (2, 1, 2), S, False)])
+            ("mixtral-8x7b", (2, 1, 2), S, False)] + PARTIAL)
+# every arch of a case, the head cuts included: the inputs' params
+INPUT_ARCHS = ARCHS + sorted({c[0] for c in PARTIAL})
 TIMEOUT = 600            # seconds a run may take before it fails
 
 
@@ -95,6 +116,17 @@ def _ids(cases):
     return [_tag(*c) for c in cases]
 
 
+# the scripts' reading of a case's arch: its id and REDUCED config, with
+# the head counts of an "<id>@HxKV" cut
+_CUT = r"""
+def cut(arch, **change):
+    name, _, heads = arch.partition("@")
+    if heads:
+        change.update(zip(("n_heads", "n_kv_heads"),
+                          map(int, heads.split("x"))))
+    return name, dataclasses.replace(configs.get_arch(name).REDUCED, **change)
+"""
+
 # runs under JAX with 4 faked devices; prints OK at the end
 _JAX_SIDE = r"""
 import dataclasses, json, sys
@@ -108,14 +140,15 @@ B, N_DEC = %(B)d, %(N_DEC)d
 FAST_XLA = {"xla_backend_optimization_level": 0}
 toks = inp["tokens"]
 out = {}
+%(CUT)s
+
 for arch, shape, T, prefill in json.loads(sys.argv[3]):
     tag = f"{arch}/{T}/{'prefill' if prefill else 'empty'}/" + "x".join(
         map(str, shape))
     mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(shape),
                              ("pod", "data", "model")[-len(shape):])
-    cfg = dataclasses.replace(configs.get_arch(arch).REDUCED,
-                              dtype=jnp.float32)
-    h = LMHarness(arch, cfg=cfg)
+    name, cfg = cut(arch, dtype=jnp.float32)
+    h = LMHarness(name, cfg=cfg)
     like, tdef = jax.tree.flatten(h.param_shapes())
     params = jax.tree.unflatten(tdef, [jnp.asarray(inp[f"params/{arch}/{i}"])
                                        for i in range(len(like))])
@@ -173,6 +206,7 @@ groups[(2, 2)] = pg.init_ranks(("data", "model"), (2, 2), rank=rank,
                                init_method=init, device="cpu",
                                timeout_s=%(TIMEOUT)d)
 out, recs = {}, {}
+%(CUT)s
 for arch, shape, T, prefill in json.loads(sys.argv[5]):
     shape = tuple(shape)
     tag = f"{arch}/{T}/{'prefill' if prefill else 'empty'}/" + "x".join(
@@ -182,9 +216,8 @@ for arch, shape, T, prefill in json.loads(sys.argv[5]):
                                        shape, "cpu", timeout_s=%(TIMEOUT)d)
     g = groups[shape]
     mesh = make_rank_mesh(g)
-    cfg = dataclasses.replace(configs.get_arch(arch).REDUCED,
-                              dtype=torch.float32)
-    h = LMHarness(arch, cfg=cfg)
+    name, cfg = cut(arch, dtype=torch.float32)
+    h = LMHarness(name, cfg=cfg)
     sp, sd = Shape("serve", T, B, "prefill"), Shape("serve", T, B, "decode")
     like = h.param_shapes()
     p_shard = part.params_partition(like, mesh, h.rules(mesh))
@@ -244,14 +277,15 @@ from repro_torch.launch import dryrun
 
 B = %(B)d
 out = {}
+%(CUT)s
+
 for arch, shape, T, prefill in json.loads(sys.argv[1]):
     tag = f"{arch}/{T}/{'prefill' if prefill else 'empty'}/" + "x".join(
         map(str, shape))
-    cfg = dataclasses.replace(configs.get_arch(arch).REDUCED,
-                              dtype=torch.float32)
+    name, cfg = cut(arch, dtype=torch.float32)
     for kind in (("prefill", "decode") if prefill else ("decode",)):
         out[f"{tag}/{kind}"] = dryrun.run_cell(
-            arch, Shape("serve", T, B, kind), mesh=tuple(shape), cfg=cfg,
+            name, Shape("serve", T, B, kind), mesh=tuple(shape), cfg=cfg,
             device="cpu", verbose=False)
 with open(sys.argv[2], "w") as f:
     json.dump(out, f)
@@ -260,8 +294,19 @@ print("OK")
 
 
 def _cfg(arch):
-    return dataclasses.replace(tconfigs.get_arch(arch).REDUCED,
-                               dtype=torch.float32)
+    """The REDUCED float32 config of a case's arch (``"<id>@HxKV"``: with
+    those head counts)."""
+    name, _, heads = arch.partition("@")
+    change = {}
+    if heads:
+        change = dict(zip(("n_heads", "n_kv_heads"),
+                          map(int, heads.split("x"))))
+    return dataclasses.replace(tconfigs.get_arch(name).REDUCED,
+                               dtype=torch.float32, **change)
+
+
+def _harness(arch):
+    return LMHarness(arch.partition("@")[0], cfg=_cfg(arch))
 
 
 def _params_np(arch, seed):
@@ -269,8 +314,7 @@ def _params_np(arch, seed):
     the square root of the fan-in (the second-to-last dim)."""
     rng = np.random.default_rng(seed)
     out = []
-    for path, t in flatten_with_paths(LMHarness(arch, cfg=_cfg(arch))
-                                      .param_shapes()):
+    for path, t in flatten_with_paths(_harness(arch).param_shapes()):
         shape = tuple(t.shape)
         if "norm" in "/".join(map(str, path)) or len(shape) < 2:
             out.append(rng.normal(0, 0.1, shape))
@@ -306,11 +350,11 @@ def runs(tmp_path_factory):
     rng = np.random.default_rng(11)
     arrays = {"tokens": rng.integers(1, 256, (B, S + 2 + N_DEC))
               .astype(np.int32)}
-    for n, arch in enumerate(ARCHS):
+    for n, arch in enumerate(INPUT_ARCHS):
         for i, a in enumerate(_params_np(arch, 200 + n)):
             arrays[f"params/{arch}/{i}"] = a
     np.savez(inputs, **arrays)
-    subs = {"B": B, "N_DEC": N_DEC, "TIMEOUT": TIMEOUT}
+    subs = {"B": B, "N_DEC": N_DEC, "TIMEOUT": TIMEOUT, "CUT": _CUT}
     cases = json.dumps(CASES)
     procs = {"the JAX side": subprocess.Popen(
         [sys.executable, "-c", _JAX_SIDE % subs, inputs,
@@ -378,7 +422,7 @@ def test_serve_ranks_match_the_logical_mesh(runs, arch, mesh, T, prefill):
     """4 gloo ranks == the port's one-process logical mesh of the same
     shape (``cpu``)."""
     tag = _tag(arch, mesh, T, prefill)
-    h = LMHarness(arch, cfg=_cfg(arch))
+    h = _harness(arch)
     like = h.param_shapes()
     inp = runs["inputs"]
     params = convert.lm_params(unflatten(like, [
@@ -413,7 +457,7 @@ def test_each_rank_holds_its_cache_shard(runs, arch, mesh, T, prefill):
     replicated over ``model`` on one data rank is whole), and every rank
     returns the whole batch's logits and the same tokens."""
     tag = _tag(arch, mesh, T, prefill)
-    h = LMHarness(arch, cfg=_cfg(arch))
+    h = _harness(arch)
     lm = tmesh.LMMesh(_names(mesh), mesh)
     c_shapes = h.cache_shapes(Shape("serve", T, B, "decode"))
     c_shard = tpart.cache_partition(c_shapes, lm, h.rules(lm))
@@ -438,7 +482,7 @@ def test_the_three_cache_layouts_are_covered():
     seen = set()
     pod_seen = set()
     for arch, mesh, T, _ in CASES:
-        h = LMHarness(arch, cfg=_cfg(arch))
+        h = _harness(arch)
         lm = tmesh.LMMesh(_names(mesh), mesh)
         sh = tpart.cache_partition(h.cache_shapes(
             Shape("serve", T, B, "decode")), lm, h.rules(lm))
@@ -453,14 +497,16 @@ def test_the_three_cache_layouts_are_covered():
 
 @pytest.mark.parametrize("arch,mesh", [("granite-3-2b", (1, 4)),
                                        ("mixtral-8x7b", (2, 2)),
-                                       ("mixtral-8x7b", (2, 1, 2))])
+                                       ("mixtral-8x7b", (2, 1, 2)),
+                                       (SCOUT + "@5x1", (2, 2)),
+                                       ("granite-3-2b@10x5", (1, 4))])
 def test_decode_from_an_empty_cache(runs, arch, mesh):
     """From an empty cache the first decode step writes slot 0 alone, so
     the model ranks but the first hold no valid slot; their softmax parts
     add nothing, and the steps still equal JAX's (above)."""
     tag = _tag(arch, mesh, S, False)
     M = mesh[-1]
-    T_l = LMHarness(arch, cfg=_cfg(arch)).model.cache_len(S) // M
+    T_l = _harness(arch).model.cache_len(S) // M
     for r in range(4):
         valid = runs["recs"][r][tag]["valid"]
         c = r % M
